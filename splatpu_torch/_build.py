@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``.  No PyTorch headers
-are included, so a build takes seconds; compiling a source that includes
-them through PyTorch's extension tooling takes minutes.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  No PyTorch headers are included,
+so a build takes seconds; compiling a source that includes them through
+PyTorch's extension tooling takes minutes.
 
 At first use the build directory ``splatpu_torch/_build/`` is deleted and
 made anew, so no stale library or lock from an earlier, interrupted run can
@@ -42,33 +43,53 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def nvcc_command() -> list[str]:
-    sources = sorted(str(p) for p in CSRC_DIR.glob("*.cu"))
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def compile_command(source: Path) -> list[str]:
+    """nvcc of one source into a position-independent object."""
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(LIBRARY), *sources,
+        "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-o", str(BUILD_DIR / f"{source.stem}.o"), str(source),
     ]
 
 
-def _run(cmd: list[str]) -> str:
-    """Run cmd in its own process group; on timeout kill the whole group
-    (nvcc's cicc/ptxas children included) and raise."""
-    proc = subprocess.Popen(
-        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        start_new_session=True,
-    )
-    try:
-        out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        out, _ = proc.communicate()
-        raise RuntimeError(
-            f"nvcc timed out after {NVCC_TIMEOUT_S} s: {' '.join(cmd)}\n{out}"
+def link_command(objects: list[Path]) -> list[str]:
+    return [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+        "-o", str(LIBRARY), *(str(o) for o in objects),
+    ]
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once, each in its own process group; on timeout
+    kill every group (nvcc's cicc/ptxas children included) and raise."""
+    procs = [
+        subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True,
         )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
-    return out
+        for cmd in cmds
+    ]
+    deadline = time.monotonic() + NVCC_TIMEOUT_S
+    outs, failed = [], []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=max(deadline - time.monotonic(), 0.1))
+            outs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    except subprocess.TimeoutExpired:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+        raise RuntimeError(f"nvcc timed out after {NVCC_TIMEOUT_S} s")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outs)
 
 
 def load_library() -> ctypes.CDLL:
@@ -78,13 +99,23 @@ def load_library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         shutil.rmtree(BUILD_DIR, ignore_errors=True)
         BUILD_DIR.mkdir(parents=True)
-        build_log = _run(nvcc_command())
+        srcs = sources()
+        build_log = _run_all([compile_command(src) for src in srcs])
+        build_log += _run_all([link_command([BUILD_DIR / f"{src.stem}.o" for src in srcs])])
         lib = ctypes.CDLL(str(LIBRARY))
         lib.splatpu_cuda_error_string.argtypes = [ctypes.c_int]
         lib.splatpu_cuda_error_string.restype = ctypes.c_char_p
         build_seconds = time.perf_counter() - t0
         _lib = lib
     return _lib
+
+
+def require_cuda(name: str, tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor."""
+    if not all(x.is_cuda for x in tensors):
+        raise ValueError(f"{name} takes CUDA tensors only")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name} takes contiguous tensors only")
 
 
 def check_status(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -27,3 +27,19 @@ def build_rotation(q: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     """(..., 4) quaternions -> (..., 3, 3) rotation matrices."""
     rows = rotation_entries(q, eps=eps)
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    """(w, x, y, z) -> (w, -x, -y, -z); the inverse of a unit quaternion."""
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def quat_mult(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product, batched over leading axes."""
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    w = w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2
+    x = w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2
+    y = w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2
+    z = w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2
+    return torch.stack([w, x, y, z], dim=-1)

@@ -134,7 +134,7 @@ class RenderArgs:
     """Activated per-Gaussian quantities the renderer consumes.
 
     The JAX package's ``means2d_offset`` screen-gradient collector is left
-    out: the port's render is forward-only until the training slice.
+    out: only stage 1's densification reads it, and stage 1 is not ported.
     """
 
     means3d: torch.Tensor    # (N, 3)

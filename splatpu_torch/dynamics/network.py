@@ -13,7 +13,9 @@ the reference never switches its module to eval mode.  ``nn.BatchNorm1d``
 in eval mode would be wrong; ``F.batch_norm(training=True)`` without running
 buffers is exactly this.  Everything computes in float32; TF32 matmuls are
 switched off for the forward pass (and the caller's setting restored after),
-so the card computes what the CPU does.
+so the card computes what the CPU does; a training step wraps its forward
+and backward passes in ``no_tf32`` itself, since autograd runs the backward
+matmuls after ``forward`` has returned.
 """
 
 from __future__ import annotations
@@ -43,16 +45,18 @@ class DeformationNetConfig:
 
 
 @contextlib.contextmanager
-def _no_tf32():
-    """Full-float32 matmuls for the duration; the process's setting is
-    restored after."""
-    flags = torch.backends.cuda.matmul
-    prev = flags.allow_tf32
-    flags.allow_tf32 = False
+def no_tf32():
+    """Full-float32 matmuls and convolutions for the duration (TF32 off for
+    cuBLAS and cuDNN); the process's settings are restored after.  The flags
+    are process-wide, so a backward pass run inside the scope (autograd's
+    device threads included) computes in float32 too."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    prev = (matmul.allow_tf32, cudnn.allow_tf32)
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        flags.allow_tf32 = prev
+        matmul.allow_tf32, cudnn.allow_tf32 = prev
 
 
 class BatchStatNorm(nn.Module):
@@ -95,7 +99,7 @@ class DeformationNet(nn.Module):
 
     def forward(self, initial_means_and_rotations, encoded_initial, encoded_previous, encoded_progress):
         x = torch.cat([encoded_initial, encoded_previous, encoded_progress], dim=1)
-        with _no_tf32():
+        with no_tf32():
             x = self.fc_in(x)
             for blk in self.blocks:
                 x = blk(x)
@@ -103,6 +107,58 @@ class DeformationNet(nn.Module):
         if self.config.double_residual:
             out = out + initial_means_and_rotations
         return out
+
+
+def init_deformation_net(
+    config: DeformationNetConfig = DeformationNetConfig(),
+    generator: torch.Generator | None = None,
+    device="cuda",
+) -> DeformationNet:
+    """A fresh network with torch's default Linear init, U(+-1/sqrt(fan_in))
+    for weights and biases, drawn from ``generator`` (on the CPU, then moved
+    to ``device``); BatchNorm scale 1 and shift 0; ``fc_out`` zero under
+    ``zero_init_head``.  The JAX package draws the same distribution from
+    ``jax.random``; the numbers differ, so parity tests carry parameters
+    across with ``state_dict_from_jax``."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    net = DeformationNet(config)
+    linears = [net.fc_in, net.fc_out] + [fc for b in net.blocks for fc in (b.fc1, b.fc2)]
+    with torch.no_grad():
+        for fc in linears:
+            if fc is net.fc_out and config.zero_init_head:
+                continue
+            bound = 1.0 / fc.in_features**0.5
+            for p in (fc.weight, fc.bias):
+                if p is not None:
+                    p.copy_((torch.rand(p.shape, generator=generator) * 2.0 - 1.0) * bound)
+    return net.to(device)
+
+
+def net_params_to_jax_tree(net_or_state) -> dict:
+    """A ``DeformationNet`` (or its state dict) -> the JAX package's
+    ``net_params`` pytree with numpy leaves (weights transposed back to
+    (in, out), ``blocks`` a list): the reverse of ``state_dict_from_jax``."""
+    sd = net_or_state.state_dict() if isinstance(net_or_state, nn.Module) else net_or_state
+
+    def a(name, transpose=False):
+        x = sd[name].detach().cpu()
+        return (x.T if transpose else x).contiguous().numpy()
+
+    n_blocks = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    return {
+        "fc_in": {"w": a("fc_in.weight", True), "b": a("fc_in.bias")},
+        "fc_out": {"w": a("fc_out.weight", True), "b": a("fc_out.bias")},
+        "blocks": [
+            {
+                "fc1": {"w": a(f"blocks.{i}.fc1.weight", True)},
+                "bn1": {"gamma": a(f"blocks.{i}.bn1.weight"), "beta": a(f"blocks.{i}.bn1.bias")},
+                "fc2": {"w": a(f"blocks.{i}.fc2.weight", True)},
+                "bn2": {"gamma": a(f"blocks.{i}.bn2.weight"), "beta": a(f"blocks.{i}.bn2.bias")},
+            }
+            for i in range(n_blocks)
+        ],
+    }
 
 
 def state_dict_from_jax(params) -> dict[str, torch.Tensor]:

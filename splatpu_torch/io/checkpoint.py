@@ -9,7 +9,8 @@
   "1", ..., and arrays over 1 GiB as "chunked" maps.
 - ``load_stage2_net``: a stage-2 checkpoint's ``net_params`` as a
   ``DeformationNet`` state dict; ``load_stage2_run``: the network of a
-  stage-2 run directory with the head settings its result file records.
+  stage-2 run directory with the head settings its result file records;
+  ``load_stage2_opt_state``: its Adam state (count, first and second moments).
 """
 
 from __future__ import annotations
@@ -170,3 +171,22 @@ def load_stage2_run(run_dir, device="cuda") -> tuple[DeformationNet, dict]:
     net = DeformationNet(net_config_for(sd, **{k: head[k] for k in HEAD_KNOBS}))
     net.load_state_dict(sd)
     return net.to(device), head
+
+
+def load_stage2_opt_state(path) -> dict:
+    """A stage-2 checkpoint's optax Adam state -> ``{"count": int, "mu": ...,
+    "nu": ...}`` with ``mu`` / ``nu`` as ``DeformationNet`` state dicts
+    (weights transposed like the parameters), ready for
+    ``Stage2Adam.load_state``.  optax's ``adam`` state is a pair: the moments
+    with their update count, and the schedule's own count (the same number).
+    """
+    tree = msgpack_restore(Path(path).read_bytes())["opt_state"]
+    adam, schedule = tree["0"], tree["1"]
+    count = int(adam["count"])
+    if int(schedule["count"]) != count:
+        raise ValueError("Adam and schedule counts differ in the checkpoint")
+    return {
+        "count": count,
+        "mu": state_dict_from_jax(adam["mu"]),
+        "nu": state_dict_from_jax(adam["nu"]),
+    }

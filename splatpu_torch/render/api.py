@@ -6,8 +6,12 @@ batched) camera in one call.  ``impl``:
 
 - ``"cuda"``:  exact binning + the hand-written CUDA composite (CUDA tensors);
 - ``"plain"``: exact binning + the composite's plain PyTorch version;
+- ``"oracle"``: the naive per-pixel renderer (``render/oracle.py``), the
+  port's ground truth for small scenes;
 - ``"auto"``:  ``"cuda"`` for CUDA tensors, ``"plain"`` for CPU tensors, as
   the JAX package picks its Pallas kernels on a TPU.
+
+Every impl is differentiable in the per-Gaussian inputs and ``bg``.
 """
 
 from __future__ import annotations
@@ -20,13 +24,14 @@ from splatpu_torch.core.projection import preprocess, tile_rect
 from splatpu_torch.core.types import Camera, RenderArgs
 from splatpu_torch.render.binning import DEFAULT_TILE, BinningConfig, tile_grid
 from splatpu_torch.render.exact import render_exact
+from splatpu_torch.render.oracle import render_oracle
 from splatpu_torch.render.types import RenderOutput
 
 
 def resolve_impl(impl: str, device: torch.device) -> str:
     if impl == "auto":
         return "cuda" if device.type == "cuda" else "plain"
-    if impl not in ("cuda", "plain"):
+    if impl not in ("cuda", "plain", "oracle"):
         raise ValueError(f"unknown renderer impl: {impl!r}")
     return impl
 
@@ -39,6 +44,8 @@ def render(
     config: BinningConfig | None = None,
 ) -> RenderOutput:
     impl = resolve_impl(impl, args.means3d.device)
+    if impl == "oracle":
+        return render_oracle(args, camera, bg)
     if config is None:
         config = default_config(args.n)
     return render_exact(args, camera, bg, config, impl=impl)

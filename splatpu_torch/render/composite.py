@@ -1,4 +1,5 @@
-"""Forward tile composite: the CUDA kernel's wrapper and its plain version.
+"""Tile composite, forward and backward: the CUDA kernels' wrappers and
+their plain versions.
 
 Replaces ``splatpu/render/exact.py::_fwd_kernel_grid`` (via ``_fwd_call_grid``,
 the TPU's forward composite).  The kernel is ``csrc/composite_fwd.cu``: one
@@ -21,6 +22,16 @@ Inputs, shared by both versions (V views, N Gaussians, P pair slots, T tiles):
 Outputs: image (V, C, H, W), depth (V, H, W), final transmittance (V, H, W)
 and the int32 position of the last contributing pair (V, H, W), -1 where
 none contributed.
+
+The backward composite replaces ``splatpu/render/exact.py::_bwd_kernel_grid``
+(via ``_bwd_call_grid``).  Its kernel is ``csrc/composite_bwd.cu``: one block
+per (tile, view), one thread per pixel walking back to front from the
+pixel's forward ``last``, per-pair sums over the tile's pixels by warp
+shuffles and a fixed-order sum across warps, no atomics.  It takes the
+forward inputs plus the forward's final T and ``last`` and the cotangents
+``g_img`` (V, C, H, W), ``g_depth`` and ``g_tf`` (V, H, W), and returns the
+per-pair gradient rows (V, P, 7 + C) in the table's row order; pairs that
+no pixel composited keep a zero row.
 """
 
 from __future__ import annotations
@@ -35,7 +46,8 @@ from splatpu_torch.core.projection import ALPHA_MAX, ALPHA_MIN, TRANSMITTANCE_EP
 REC_GEOM = 7
 MAX_C = 5
 
-LAUNCHES = 0  # kernel launches made by composite_fwd_cuda
+LAUNCHES = 0      # kernel launches made by composite_fwd_cuda
+BWD_LAUNCHES = 0  # kernel launches made by composite_bwd_cuda
 
 
 def pack_table(mean2d, conic, opacity, depth, colors) -> torch.Tensor:
@@ -70,22 +82,20 @@ def _check_inputs(table, gid, start, end, bg, tiles_x, tiles_y, tile):
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library()
-    fn = lib.splatpu_composite_fwd
     # Pointers and the stream as c_void_p: ctypes would otherwise pass each
     # Python int as a 32-bit int and cut the pointer.
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn, n_ptr, n_int in (
+        (lib.splatpu_composite_fwd, 9, 9), (lib.splatpu_composite_bwd, 11, 9),
+    ):
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
 def composite_fwd_cuda(table, gid, start, end, bg, *, tiles_x, tiles_y, tile, width, height):
     """Launch the CUDA kernel; every tensor must be a contiguous CUDA tensor."""
     global LAUNCHES
-    tensors = (table, gid, start, end, bg)
-    if not all(x.is_cuda for x in tensors):
-        raise ValueError("composite_fwd_cuda takes CUDA tensors only")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("composite_fwd_cuda takes contiguous tensors only")
+    _build.require_cuda("composite_fwd_cuda", (table, gid, start, end, bg))
     v, c = _check_inputs(table, gid, start, end, bg, tiles_x, tiles_y, tile)
     dev = table.device
     image = torch.empty((v, c, height, width), dtype=torch.float32, device=dev)
@@ -235,3 +245,161 @@ def composite_fwd_plain(
         tiles_x, tiles_y, tile, width, height,
     )
     return out + (counts[:, 0].contiguous(), counts[:, 1].contiguous())
+
+
+def _check_bwd_inputs(table, tfinal, last, g_img, g_depth, g_tf, v, c, width, height):
+    pix = (v, height, width)
+    for name, x, shape, dt in (
+        ("tfinal", tfinal, pix, torch.float32), ("last", last, pix, torch.int32),
+        ("g_img", g_img, (v, c, height, width), torch.float32),
+        ("g_depth", g_depth, pix, torch.float32), ("g_tf", g_tf, pix, torch.float32),
+    ):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
+        if x.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {x.dtype}")
+
+
+def composite_bwd_cuda(
+    table, gid, start, end, bg, tfinal, last, g_img, g_depth, g_tf,
+    *, tiles_x, tiles_y, tile, width, height,
+):
+    """Launch the backward kernel; every tensor must be a contiguous CUDA
+    tensor.  Returns the per-pair gradient rows (V, P, 7 + C)."""
+    global BWD_LAUNCHES
+    tensors = (table, gid, start, end, bg, tfinal, last, g_img, g_depth, g_tf)
+    _build.require_cuda("composite_bwd_cuda", tensors)
+    v, c = _check_inputs(table, gid, start, end, bg, tiles_x, tiles_y, tile)
+    _check_bwd_inputs(table, tfinal, last, g_img, g_depth, g_tf, v, c, width, height)
+    if (tile * tile) % 32:
+        raise ValueError(f"the backward kernel needs tile*tile a multiple of 32, got {tile}")
+    p = gid.shape[1]
+    d_rows = torch.zeros((v, p, table.shape[2]), dtype=torch.float32, device=table.device)
+    lib = _lib()
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        code = lib.splatpu_composite_bwd(
+            *(x.data_ptr() for x in tensors), d_rows.data_ptr(), v, table.shape[1], p, c,
+            tiles_x, tiles_y, tile, width, height, stream,
+        )
+    _build.check_status(lib, code, "composite_bwd launch")
+    BWD_LAUNCHES += 1
+    return d_rows
+
+
+def to_tiles(x: torch.Tensor, tiles_x: int, tiles_y: int, tile: int, fill=0):
+    """(V, K, H, W) image layout -> (V * T, tile*tile, K) tile-major, the
+    pixels beyond the image set to ``fill`` (the inverse of ``untile``)."""
+    v, k, h, w = x.shape
+    x = torch.nn.functional.pad(x, (0, tiles_x * tile - w, 0, tiles_y * tile - h), value=fill)
+    x = x.reshape(v, k, tiles_y, tile, tiles_x, tile).permute(0, 2, 4, 3, 5, 1)
+    return x.reshape(v * tiles_y * tiles_x, tile * tile, k)
+
+
+def composite_bwd_plain(
+    table, gid, start, end, bg, tfinal, last, g_img, g_depth, g_tf,
+    *, tiles_x, tiles_y, tile, width, height, chunk: int = 256,
+):
+    """The backward kernel's function in plain PyTorch, vectorised over pairs.
+
+    Tiles are processed in batches; each batch walks its segments back to
+    front in chunks of ``chunk`` pairs, from the tile's largest ``last``
+    down, carrying per pixel the transmittance T (divided by 1 - alpha per
+    live pair, as the kernel does) and the suffix sum.  Within a chunk the
+    suffix products and sums are a cumprod / cumsum along the reversed
+    lanes.  Alpha is computed in float32 as the forward does; T, the suffix
+    and the row sums are carried in float64, so this version's rounding
+    stays well below the kernel's float32 rounding it is compared with.
+    """
+    v, c = _check_inputs(table, gid, start, end, bg, tiles_x, tiles_y, tile)
+    _check_bwd_inputs(table, tfinal, last, g_img, g_depth, g_tf, v, c, width, height)
+    dev = table.device
+    rec_n = REC_GEOM + c
+    n_rec = table.shape[1]
+    p = gid.shape[1]
+    nt = tiles_x * tiles_y
+    npix = tile * tile
+    f64 = torch.float64
+    table_flat = table.reshape(v * n_rec, rec_n)
+    gid_flat = gid.reshape(-1).long()
+    starts = start.reshape(-1).long()
+    ends = end.reshape(-1).long()
+    view_of = torch.arange(v * nt, device=dev) // nt
+    t_of = torch.arange(v * nt, device=dev) % nt
+    ox = ((t_of % tiles_x) * tile).float()
+    oy = ((t_of // tiles_x) * tile).float()
+    pix = torch.arange(npix, device=dev)
+    lx = (pix % tile).float()
+    ly = (pix // tile).float()
+
+    geo = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile=tile)
+    gimg_t = to_tiles(g_img, **geo).double()                         # (VT, NPIX, C)
+    gdep_t = to_tiles(g_depth[:, None], **geo)[..., 0].double()      # (VT, NPIX)
+    tfin_t = to_tiles(tfinal[:, None], **geo)[..., 0].double()
+    gtf_t = to_tiles(g_tf[:, None], **geo)[..., 0].double()
+    last_t = to_tiles(last[:, None].long(), **geo, fill=-1)[..., 0]  # (VT, NPIX)
+    s_init = tfin_t * (gtf_t + (gimg_t * bg.double()).sum(-1))
+
+    top = torch.minimum(ends - 1, last_t.amax(dim=1))               # (VT,)
+    lengths = (top - starts + 1).clamp(min=0)
+    out = torch.zeros((v * p, rec_n), dtype=f64, device=dev)
+    g = max(1, min(chunk, int(lengths.max()) if lengths.numel() else 1))
+    batch = max(1, (1 << 21) // (npix * g))
+    lanes = torch.arange(g, device=dev)
+    for b0 in range(0, v * nt, batch):
+        sl = slice(b0, min(b0 + batch, v * nt))
+        seg_len = int(lengths[sl].max())
+        if seg_len == 0:
+            continue
+        t_car = tfin_t[sl].clone()
+        s_car = s_init[sl].clone()
+        gimg, gdep, last_b = gimg_t[sl], gdep_t[sl], last_t[sl]
+        for k0 in range(0, seg_len, g):
+            pos = top[sl, None] - k0 - lanes[None, :]                 # (B, G) descending
+            live_p = pos >= starts[sl, None]
+            pos_c = torch.where(live_p, pos, torch.zeros_like(pos))
+            gids = gid_flat[view_of[sl, None] * p + pos_c]
+            rec = table_flat[view_of[sl, None] * n_rec + gids]       # (B, G, R)
+            mx = (rec[..., 0] - ox[sl, None])[:, None, :]
+            my = (rec[..., 1] - oy[sl, None])[:, None, :]
+            ca, cb, cc, op = (rec[..., i][:, None, :] for i in (2, 3, 4, 5))
+            dx = lx[None, :, None] - mx                               # (B, NPIX, G)
+            dy = ly[None, :, None] - my
+            power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+            raw = op * torch.exp(power)
+            alpha = torch.clamp(raw, max=ALPHA_MAX)
+            live = (
+                ~(power > 0.0) & (alpha >= ALPHA_MIN) & live_p[:, None, :]
+                & (pos[:, None, :] <= last_b[:, :, None])
+            )
+            alpha = torch.where(live, alpha, torch.zeros_like(alpha)).double()
+            one_m = 1.0 - alpha
+            t_excl = t_car[..., None] / torch.cumprod(one_m, dim=2)
+            chat = gdep[..., None] * rec[..., 6].double()[:, None, :]
+            for ch in range(c):
+                chat = chat + gimg[..., ch : ch + 1] * rec[..., REC_GEOM + ch].double()[:, None, :]
+            w = alpha * t_excl
+            wchat = w * chat
+            suffix = s_car[..., None] + torch.cumsum(wchat, dim=2) - wchat
+            dalpha = torch.where(live, t_excl * chat - suffix / one_m, torch.zeros_like(w))
+            dpower = torch.where(raw < ALPHA_MAX, alpha * dalpha, torch.zeros_like(w))
+            dx, dy = dx.double(), dy.double()
+            ca, cb, cc, op = ca.double(), cb.double(), cc.double(), op.double()
+            rows = [
+                ((ca * dx + cb * dy) * dpower).sum(1),
+                ((cc * dy + cb * dx) * dpower).sum(1),
+                (-0.5 * dx * dx * dpower).sum(1),
+                (-dx * dy * dpower).sum(1),
+                (-0.5 * dy * dy * dpower).sum(1),
+                torch.where(
+                    op[:, 0] > 0.0, dpower.sum(1) / op[:, 0].clamp(min=1e-30),
+                    torch.zeros_like(op[:, 0]),
+                ),
+                (w * gdep[..., None]).sum(1),
+            ] + [(w * gimg[..., ch : ch + 1]).sum(1) for ch in range(c)]
+            rows = torch.stack(rows, dim=-1)                          # (B, G, R)
+            flat = view_of[sl, None] * p + pos_c
+            out[flat[live_p]] = rows[live_p]
+            t_car = t_excl[..., -1]
+            s_car = s_car + wchat.sum(2)
+    return out.float().reshape(v, p, rec_n)

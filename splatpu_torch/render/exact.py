@@ -1,5 +1,5 @@
-"""Exact-budget tile binning and the batched forward render (port of
-``splatpu/render/exact.py:93-358`` and ``:1482-1578``).
+"""Exact-budget tile binning and the batched differentiable render (port of
+``splatpu/render/exact.py:93-358`` and ``:1397-1578``).
 
 Binning runs as plain torch on the tensors' device and reproduces the JAX
 package's integers exactly: two-class emission (every Gaussian emits
@@ -13,6 +13,14 @@ int64 holds both: ``((key - 2**31) << 32) | val``.  Biasing the key into the
 signed range first matters: at 720p / 32 px tiles the key reaches 2^31 and
 above (920 tiles leave 22 depth bits), and the 0xFFFFFFFF sentinel would
 otherwise wrap negative and sort first.
+
+The render.  ``CompositeTable`` is the port of the ``_composite_table``
+custom VJP: its forward is the forward composite (K1), its backward the
+backward composite (K2) -> ``pos_of_slot_of`` -> the routing kernel, giving
+d(table) (V, N, 7 + C) and d(bg).  Binning computes integers only and runs
+without autograd; the per-Gaussian table is packed from ``preprocess``'s
+outputs by differentiable ops, so gradients reach means, rotations, scales,
+opacities and colours through preprocess by ordinary autograd.
 """
 
 from __future__ import annotations
@@ -24,7 +32,14 @@ import torch
 from splatpu_torch.core.projection import Splats2D, preprocess, tile_rect
 from splatpu_torch.core.types import Camera, RenderArgs
 from splatpu_torch.render.binning import BinningConfig, _depth_bits_for, tile_grid
-from splatpu_torch.render.composite import composite_fwd_cuda, composite_fwd_plain, pack_table
+from splatpu_torch.render.composite import (
+    composite_bwd_cuda,
+    composite_bwd_plain,
+    composite_fwd_cuda,
+    composite_fwd_plain,
+    pack_table,
+)
+from splatpu_torch.render.route import pos_of_slot_of, route_pairs_cuda, route_pairs_plain
 from splatpu_torch.render.types import RenderOutput
 
 SENTINEL = 0xFFFFFFFF
@@ -51,7 +66,21 @@ def bin_splats(
     splats: Splats2D, opacities: torch.Tensor, width: int, height: int,
     config: BinningConfig,
 ) -> ExactStream:
-    """Exact binning of one view's projected splats; ``opacities`` is (N,)."""
+    """Exact binning of one view's projected splats; ``opacities`` is (N,).
+
+    The integers come from detached values; only ``g_opacity`` (and the
+    splats, passed through) carry autograd history."""
+    with torch.no_grad():
+        stream = _bin(splats, opacities.detach(), width, height, config)
+    g_opacity = torch.where(splats.visible, opacities, torch.zeros_like(opacities))
+    return dataclasses.replace(stream, g_opacity=g_opacity, splats=splats)
+
+
+def _bin(splats: Splats2D, opacities, width, height, config: BinningConfig) -> ExactStream:
+    splats = Splats2D(
+        mean2d=splats.mean2d.detach(), depth=splats.depth.detach(),
+        conic=splats.conic.detach(), radius=splats.radius.detach(), visible=splats.visible,
+    )
     tile = config.tile
     tiles_x, tiles_y = tile_grid(width, height, tile)
     num_tiles = tiles_x * tiles_y
@@ -239,23 +268,63 @@ def composite_inputs(args: RenderArgs, camera: Camera, config: BinningConfig):
     return streams, inputs
 
 
+# impl -> (forward composite, backward composite, routing)
+KERNELS = {
+    "cuda": (composite_fwd_cuda, composite_bwd_cuda, route_pairs_cuda),
+    "plain": (composite_fwd_plain, composite_bwd_plain, route_pairs_plain),
+}
+
+
+class CompositeTable(torch.autograd.Function):
+    """The batched composite over the per-Gaussian table, differentiable in
+    ``table`` (V, N, 7 + C) and ``bg`` (C,).  Outputs image (V, C, H, W),
+    depth and final T (V, H, W), and the int32 last contributor (not
+    differentiable)."""
+
+    @staticmethod
+    def forward(ctx, table, bg, gid, start, end, offsets, counts, lane, geometry, impl):
+        fwd = KERNELS[impl][0]
+        image, depth, tfin, last = fwd(table, gid, start, end, bg, **geometry)
+        ctx.save_for_backward(table, bg, gid, start, end, offsets, counts, lane, tfin, last)
+        ctx.geometry = geometry
+        ctx.impl = impl
+        ctx.mark_non_differentiable(last)
+        return image, depth, tfin, last
+
+    @staticmethod
+    def backward(ctx, g_img, g_depth, g_tf, _g_last):
+        table, bg, gid, start, end, offsets, counts, lane, tfin, last = ctx.saved_tensors
+        _, bwd, route = KERNELS[ctx.impl]
+        rows = bwd(
+            table, gid, start, end, bg, tfin, last, g_img.contiguous(),
+            g_depth.contiguous(), g_tf.contiguous(), **ctx.geometry,
+        )
+        d_table = route(rows, pos_of_slot_of(offsets, gid, lane), offsets, counts)
+        d_bg = (g_img * tfin[:, None]).sum(dim=(0, 2, 3))
+        return d_table, d_bg, None, None, None, None, None, None, None, None
+
+
 def render_exact(
     args: RenderArgs, camera: Camera, bg=None, config: BinningConfig = BinningConfig(),
     impl: str = "cuda",
 ) -> RenderOutput:
     """Bin every view of ``camera`` and composite all of them in one call:
-    the CUDA kernel (``impl="cuda"``) or its plain version (``"plain"``)."""
+    the CUDA kernels (``impl="cuda"``) or their plain versions (``"plain"``).
+    Differentiable in every per-Gaussian input of ``args`` and in ``bg``."""
     c = args.colors.shape[1]
     dev = args.means3d.device
     if bg is None:
         bg = torch.zeros((c,), dtype=torch.float32, device=dev)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=dev).contiguous()
-    streams, k = composite_inputs(args, camera, config)
-    composite = {"cuda": composite_fwd_cuda, "plain": composite_fwd_plain}.get(impl)
-    if composite is None:
+    if impl not in KERNELS:
         raise ValueError(f"unknown composite impl: {impl!r}")
-    image, depth, tfin, last = composite(
-        k["table"], k["gid"], k["start"], k["end"], bg, **k["geometry"]
+    streams, k = composite_inputs(args, camera, config)
+    offsets = torch.stack([s.offsets for s in streams])
+    counts = torch.stack([s.counts for s in streams])
+    lane = torch.stack([s.lane for s in streams])
+    image, depth, tfin, last = CompositeTable.apply(
+        k["table"], bg, k["gid"], k["start"], k["end"], offsets, counts, lane,
+        k["geometry"], impl,
     )
     return RenderOutput(
         image=image,

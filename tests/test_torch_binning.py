@@ -155,3 +155,26 @@ def test_measure_binning_demand_matches_jax():
                       np.stack([np_of(c.K) for c in jcams]))
     cams = tt.stack_cameras(list(create_orbit_cameras(160, 90, device="cpu").values()))
     assert measure_binning_demand(tt.activate_cloud(torch_cloud(cloud)), cams) == ref
+
+
+@pytest.mark.parametrize("far", [1.3e8, 1.3e10])
+def test_far_off_screen_centres(far):
+    # Centres ~1e10 px (far=1.3e8) and ~1e12 px (1.3e10, past the int32
+    # range of floor(x / tile)) off screen on every side, one unit in front
+    # of an axis-aligned camera, among ordinary splats.
+    # The reference casts floor(x / tile) to int32 before clamping (undefined
+    # past int32 range); the port clamps first.  Either way such a splat
+    # covers no tile, so every binning integer must agree.
+    cloud = np_cloud(10, 120)
+    for i, d in enumerate([(far, 0, -3), (-far, 0, -3), (0, far, -3), (0, -far, -3),
+                           (far, far, -3), (-far, -far, -3)]):
+        cloud["means"][i] = np.asarray(d, np.float32)
+    w2c, K = np_lookat((0.0, 0.0, -4.0), 96, 64)
+    args = jt.activate_cloud(jax_cloud(cloud))
+    sp = jax_build_exact_stream(args, jax_camera(w2c, K, 96, 64),
+                                JBinningConfig(tile=16, max_span=64, max_pairs=4096)).splats
+    m2 = np_of(sp.mean2d)[:6]
+    assert np.all(np.abs(m2).max(axis=1) > far * 10) and bool(np_of(sp.visible)[:6].all())
+    got, _ = check_identical(cloud, 96, 64, eye=(0.0, 0.0, -4.0), tile=16, max_span=64,
+                             max_pairs=4096)
+    assert np.all(np_of(got.counts)[:6] == 0) and int(got.total_pairs) > 0

@@ -1,4 +1,5 @@
-"""The CUDA forward composite against its plain PyTorch version, on the card.
+"""The CUDA composite kernels (forward, backward) and the routing kernel
+against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere.  Imports nothing of
 JAX, so it runs on a machine without it:
@@ -75,3 +76,68 @@ def test_kernel_matches_plain(cuda, n, views, width, height, tile, channels):
         assert float((a - b).abs().max()) <= tol
     assert float((got[3] == ref[3]).float().mean()) >= 0.9999
     assert bool((got[3] >= 0).any())
+
+
+def scaled_err(a, b):
+    return float((a - b).abs().max() / (b.abs().max() + 1e-12))
+
+
+@pytest.mark.parametrize(
+    "n,views,width,height,tile,channels",
+    [(300, 1, 48, 32, 16, 3), (3000, 3, 100, 70, 32, 3), (1500, 2, 64, 64, 32, 1)],
+)
+def test_backward_kernels_match_plain(cuda, n, views, width, height, tile, channels):
+    import splatpu_torch.render.route as route
+
+    args, cams = scene(n + 1, n, views, width, height, channels, cuda)
+    cfg = BinningConfig(tile=tile, max_span=256, max_pairs=1 << 18, chunk_pairs=256)
+    streams, k = composite_inputs(args, cams, cfg)
+    bg = torch.linspace(0.1, 0.3, channels, device=cuda)
+    kin = (k["table"], k["gid"], k["start"], k["end"], bg)
+    _, _, tfin, last = composite.composite_fwd_cuda(*kin, **k["geometry"])
+    rng = np.random.default_rng(n)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda)  # noqa: E731
+    cot = (t(rng.normal(size=(views, channels, height, width))),
+           t(rng.normal(size=(views, height, width))), t(rng.normal(size=(views, height, width))))
+    before = (composite.BWD_LAUNCHES, route.LAUNCHES)
+    rows = composite.composite_bwd_cuda(*kin, tfin, last, *cot, **k["geometry"])
+    rows_again = composite.composite_bwd_cuda(*kin, tfin, last, *cot, **k["geometry"])
+    torch.cuda.synchronize()
+    ref = composite.composite_bwd_plain(*kin, tfin, last, *cot, **k["geometry"])
+    assert rows.shape == (views, k["gid"].shape[1], 7 + channels)
+    assert torch.isfinite(rows).all() and rows.abs().max() > 0
+    assert scaled_err(rows, ref) <= 1e-4
+    assert torch.equal(rows, rows_again)
+
+    offsets = torch.stack([s.offsets for s in streams])
+    counts = torch.stack([s.counts for s in streams])
+    lane = torch.stack([s.lane for s in streams])
+    pos = route.pos_of_slot_of(offsets, k["gid"], lane)
+    d_table = route.route_pairs_cuda(rows, pos, offsets, counts)
+    d_again = route.route_pairs_cuda(rows, pos, offsets, counts)
+    torch.cuda.synchronize()
+    assert (composite.BWD_LAUNCHES, route.LAUNCHES) == (before[0] + 2, before[1] + 2)
+    ref_table = route.route_pairs_plain(rows, pos, offsets, counts)
+    assert d_table.shape == k["table"].shape
+    assert scaled_err(d_table, ref_table) <= 1e-5
+    assert torch.equal(d_table, d_again)
+
+
+def test_render_gradients_cuda_match_plain(cuda):
+    from splatpu_torch.render.api import render
+
+    args, cams = scene(7, 2000, 2, 96, 64, 3, cuda)
+    cfg = BinningConfig(tile=32, max_span=256, max_pairs=1 << 17, chunk_pairs=256)
+    target = torch.full((2, 3, 64, 96), 0.4, device=cuda)
+    grads = {}
+    for impl in ("cuda", "plain"):
+        leaves = {f: getattr(args, f).clone().requires_grad_(True)
+                  for f in ("means3d", "colors", "rotations", "opacities", "scales")}
+        out = render(tt.RenderArgs(**leaves), cams, bg=torch.full((3,), 0.2, device=cuda),
+                     impl=impl, config=cfg)
+        loss = (out.image - target).abs().mean() + 0.1 * out.depth.mean()
+        loss.backward()
+        grads[impl] = {f: x.grad for f, x in leaves.items()}
+    for f, g in grads["cuda"].items():
+        assert torch.isfinite(g).all(), f
+        assert scaled_err(g, grads["plain"][f]) <= 1e-4, f
