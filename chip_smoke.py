@@ -20,26 +20,47 @@ Phases, each printed with its wall time and bounded by a watchdog:
    routing, the whole ``CompositeTable`` backward "cuda" against "plain" on
    d(table), each scaled per row by the reference's largest value, 1e-4; and
    K2 + routing run twice, bitwise identical.
-5. serve: ``run_inference`` at full width: the config-3 checkpoint's network
-   (hidden 128, 3 blocks, head settings from its stage2_result.json), the
-   real cloud, 150 timesteps plus t=0, five 1280x720 views per timestep
-   through K1.  K1's launch count is zeroed just before and read just after.
-6. train: ``train`` at full width, cut in depth: the real cloud, the
-   checkpoint's network with a fresh Adam, the head settings of its result
-   file, targets rendered on the card from the cloud moved as in the
-   config-3 run (27 cameras, 1280x720, uint8), ``view_staging="device_u8"``,
-   five views per step, shuffled timesteps; TRAIN_TIMESTEPS timesteps x
-   TRAIN_ITERATIONS sequence iterations instead of 150 x 40.  Every kernel
-   count is zeroed just before ``train`` and read just after; each step must
-   launch K1, K2 and the routing kernel once.
-7. measure: at the served shapes (the t=0 frame's inputs), K1 against its
-   plain version, CUDA-event times of both, and K1's bound from this run's
-   bytes and the work its data needs.
-8. measure_bwd: at the training shapes (five 1280x720 rig views at the
-   trainer's final budget), K2 and the routing kernel against their plain
-   versions (1e-4 scaled per row; the JSON line's max_abs_err), CUDA-event
-   times, the
-   plain versions' times, one ``index_add_`` of the kept pairs' rows by
+5. compare_manual: K4 (``kernel="manual"``), forward and backward, against
+   its plain versions at 5 x 320x180 (orbit cameras) with 3 and with 9
+   colour channels (the 9 from a seeded generator): image 2e-5, depth 2e-4,
+   final T 2e-5, ``last`` identical; rows, the 16-row routing and the
+   ``CompositeTable`` backward 1e-4 scaled per row; backward and routing
+   bitwise identical across two runs.  Then one direct call whose ``gid``
+   holds 2^24 + 2^20 slots, four tiles' segments placed above position
+   2^24 and every other tile empty, against the plain versions handed the
+   window of ``gid`` that holds those segments.
+6. compare_padded: K5 (the padded composite), forward and backward, against
+   its plain versions at 5 x 320x180 on padded pair streams built on the
+   card at 16 px tiles, 3 and 9 channels, the same tolerances, and the
+   ``CompositeG`` backward "cuda" against "plain".
+7. serve, serve_manual, serve_padded: ``run_inference`` at full width: the
+   config-3 checkpoint's network (hidden 128, 3 blocks, head settings from
+   its stage2_result.json), the real cloud, five 1280x720 orbit views per
+   timestep; ``serve`` 150 timesteps plus t=0 through K1, the other two
+   NEW_SERVE_TIMESTEPS plus t=0 (a depth cut) through K4 and through K5 at
+   a 16 px budget measured at 16 px.  Every kernel count is zeroed just
+   before ``run_inference`` and read just after; the path's forward kernel
+   must have run at every render and no other composite at all.
+8. train, train_manual, train_padded: ``train`` at full width, cut in depth:
+   the real cloud, the checkpoint's network with a fresh Adam, the head
+   settings of its result file, targets rendered on the card from the cloud
+   moved as in the config-3 run (27 cameras, 1280x720, uint8),
+   ``view_staging="device_u8"``, five views per step, shuffled timesteps;
+   ``train`` TRAIN_TIMESTEPS x TRAIN_ITERATIONS through K1/K2,
+   ``train_manual`` (``binning_overrides={"kernel": "manual"}``) and
+   ``train_padded`` (``renderer="cuda_padded"``, a 16 px budget measured at
+   16 px) NEW_TRAIN_TIMESTEPS x NEW_TRAIN_ITERATIONS, instead of 150 x 40.
+   Every kernel count is zeroed just before ``train`` and read just after;
+   each step must launch its path's forward, backward and the routing
+   kernel once, and no other composite.
+9. measure, measure_manual, measure_padded: each forward kernel at the
+   served shapes (the t=0 frame's inputs) against its plain version, CUDA-
+   event times of both, and the bound from this run's bytes and the work
+   its data needs.
+10. measure_bwd, measure_manual, measure_padded: each backward kernel (and
+   the routing) at the training shapes (five 1280x720 rig views at the
+   trainer's final budget) against its plain version, CUDA-event times,
+   the plain versions' times, one ``index_add_`` of the kept pairs' rows by
    (view, gid) as the routing's library yardstick, and the bounds from this
    run's inputs.
 
@@ -54,6 +75,7 @@ import contextlib
 import dataclasses
 import faulthandler
 import json
+import re
 import subprocess
 import sys
 import time
@@ -61,12 +83,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CLOUD = ROOT / "runs" / "s1_ceiling_r4b" / "densified_cloud.npz"
+N_GAUSSIANS = 100585   # alive in CLOUD
 RUN = ROOT / "runs" / "config3_100k_r5"
 TIMESTEPS = 150
 SERVE_SIZE = (1280, 720)
 COMPARE_SIZE = (320, 180)
 TRAIN_TIMESTEPS = 8    # depth cut: config 3 trains 150 timesteps
 TRAIN_ITERATIONS = 2   # depth cut: config 3 trains 40 sequence iterations
+NEW_SERVE_TIMESTEPS = 10    # depth cut of serve_manual / serve_padded
+NEW_TRAIN_TIMESTEPS = 2     # depth cut of train_manual / train_padded
+NEW_TRAIN_ITERATIONS = 2
+CHANNELS = (3, 9)      # colour channels K4 and K5 are compared at
+BIG_P = (1 << 24) + (1 << 20)  # gid slots of K4's large-budget call
+BIG_BASE = 1 << 24             # where its segments start
+BIG_TILES = 4
 BWD_TOL = 1e-4         # scaled per row by the reference's largest value
 DEVICE = "cuda"
 TOL = {"image": 2e-5, "depth": 2e-4, "final_T": 2e-5}
@@ -81,6 +111,27 @@ PEAK_BYTES_S = 3.35e12
 # multiply-add per colour channel and for depth (2 each).
 OPS_PER_EVAL = 16
 
+# Every kernel's launch counter: (module, attribute).
+COUNTERS = {
+    "composite_fwd": ("splatpu_torch.render.composite", "LAUNCHES"),
+    "composite_bwd": ("splatpu_torch.render.composite", "BWD_LAUNCHES"),
+    "route_pairs": ("splatpu_torch.render.route", "LAUNCHES"),
+    "composite_manual_fwd": ("splatpu_torch.render.composite", "MANUAL_LAUNCHES"),
+    "composite_manual_bwd": ("splatpu_torch.render.composite", "MANUAL_BWD_LAUNCHES"),
+    "padded_fwd": ("splatpu_torch.render.padded", "LAUNCHES"),
+    "padded_bwd": ("splatpu_torch.render.padded", "BWD_LAUNCHES"),
+}
+# ptxas's kernel names -> the JSON line's kernel names (3-channel instances).
+PTXAS_NAMES = {
+    "composite_fwd_kernelILi3E": "composite_fwd", "composite_bwd_kernelILi3E": "composite_bwd",
+    "route_pairs_kernelILi10E": "route_pairs", "route_pairs_kernelILi16E": "route_pairs R=16",
+    "manual_fwd_kernelILi3E": "composite_manual_fwd", "manual_bwd_kernelILi3E": "composite_manual_bwd",
+    "manual_fwd_kernelILi9E": "composite_manual_fwd C=9",
+    "manual_bwd_kernelILi9E": "composite_manual_bwd C=9",
+    "padded_fwd_kernelILi3E": "padded_fwd", "padded_bwd_kernelILi3E": "padded_bwd",
+    "padded_fwd_kernelILi9E": "padded_fwd C=9", "padded_bwd_kernelILi9E": "padded_bwd C=9",
+}
+
 
 def ops_per_contribution(c: int) -> int:
     return 4 + 2 * (c + 1)
@@ -92,6 +143,19 @@ def ops_per_contribution(c: int) -> int:
 # and the sum of the 7 + C rows over the pixels.
 def ops_bwd_per_live(c: int) -> int:
     return 30 + 3 * c + 7 + c
+
+
+def launch_counts() -> dict:
+    import importlib
+
+    return {k: getattr(importlib.import_module(m), a) for k, (m, a) in COUNTERS.items()}
+
+
+def zero_counts() -> None:
+    import importlib
+
+    for m, a in COUNTERS.values():
+        setattr(importlib.import_module(m), a, 0)
 
 
 def row_scaled_err(got, ref) -> float:
@@ -106,13 +170,10 @@ class StepLog:
     each step made, budget growths, and whether the first step changed the
     network's parameters."""
 
-    def __init__(self, net):
-        import splatpu_torch.render.composite as composite
-        import splatpu_torch.render.route as route
-
+    def __init__(self, net, expected):
         self.net = net
+        self.expected = expected
         self.before = {k: v.detach().clone() for k, v in net.state_dict().items()}
-        self.counts = lambda: (composite.LAUNCHES, composite.BWD_LAUNCHES, route.LAUNCHES)  # noqa: E731
         self.seen = None
         self.steps, self.growth_steps, self.growths = [], set(), 0
         self.changed_after_first = False
@@ -123,8 +184,8 @@ class StepLog:
             self.growth_steps.add(step)
             print(f"  step {step}: budget growth -> {metrics}", flush=True)
             return
-        now = self.counts()
-        launched = [a - b for a, b in zip(now, self.seen or (0, 0, 0))]
+        now = launch_counts()
+        launched = {k: n - (self.seen or {}).get(k, 0) for k, n in now.items()}
         self.seen = now
         m = {k: float(v) for k, v in metrics.items()}
         m["launched"] = launched
@@ -135,53 +196,93 @@ class StepLog:
         print(f"  step {step:2d}: loss {m['total']:.6f} (l1 {m['l1']:.5f} ssim {m['ssim']:.5f}"
               f" rig {m['rigidity']:.3e}) grad_norm {m['grad_norm']:.4e} lr"
               f" {m['learning_rate']:.4e} {m['step_ms']:.2f} ms; pairs {int(m['pairs'])}"
-              f" / budget {int(m['max_pairs'])}; launches K1/K2/route {launched}", flush=True)
+              f" / budget {int(m['max_pairs'])}; launches"
+              f" {[launched[k] for k in self.expected]} of {list(self.expected)}", flush=True)
 
     def flush(self):
         pass
 
 
-def rig_all(dev):
-    """All 27 rig cameras at the served size, batched."""
+def rig_cams(dev, w, h, n=None):
+    """The rig cameras (the first ``n``, or all 27) at w x h, batched."""
     import numpy as np
     import torch
 
     from splatpu_torch.core.types import Camera
     from splatpu_torch.tools.train_scene import rig_cameras
 
-    cams = rig_cameras(*SERVE_SIZE)
+    cams = rig_cameras(w, h)[:n]
     return Camera(w2c=torch.from_numpy(np.stack([c[0] for c in cams])).to(dev),
-                  K=torch.from_numpy(np.stack([c[1] for c in cams])).to(dev),
-                  width=SERVE_SIZE[0], height=SERVE_SIZE[1])
+                  K=torch.from_numpy(np.stack([c[1] for c in cams])).to(dev), width=w, height=h)
 
 
-def bwd_case(args, cams, dev, binning=None):
-    """K1's forward at ``cams`` and the cotangents of 0.8 L1 + 0.2 (1 - SSIM)
-    against its image shifted by (3, 5) px, + 0.1 mean depth + 0.05 mean T."""
+def cotangents(image, depth, tfin):
+    """The cotangents of 0.8 L1 + 0.2 (1 - SSIM) against the image shifted by
+    (3, 5) px, + 0.1 mean depth + 0.05 mean T."""
     import torch
 
-    import splatpu_torch.render.composite as composite
     from splatpu_torch.core.ssim import ssim
-    from splatpu_torch.render.api import demand_binning, measure_binning_demand
-    from splatpu_torch.render.exact import composite_inputs
 
-    if binning is None:
-        binning = demand_binning(*measure_binning_demand(args, cams))
-    streams, k = composite_inputs(args, cams, binning)
-    kin = (k["table"].detach(), k["gid"], k["start"], k["end"],
-           torch.zeros(3, device=dev))
-    image, depth, tfin, last = composite.composite_fwd_cuda(*kin, **k["geometry"])
     leaves = [x.detach().clone().requires_grad_(True) for x in (image, depth, tfin)]
     target = torch.roll(image, shifts=(3, 5), dims=(2, 3))
     loss = (0.8 * (leaves[0] - target).abs().mean() + 0.2 * (1.0 - ssim(leaves[0], target))
             + 0.1 * leaves[1].mean() + 0.05 * leaves[2].mean())
-    cot = tuple(g.contiguous() for g in torch.autograd.grad(loss, leaves))
+    return tuple(g.contiguous() for g in torch.autograd.grad(loss, leaves))
+
+
+def table_case(args, cams, binning, fwd):
+    """The exact stream's kernel inputs, ``fwd``'s outputs on them and their
+    cotangents."""
+    import torch
+
+    from splatpu_torch.render.exact import composite_inputs
+
+    streams, k = composite_inputs(args, cams, binning)
+    kin = (k["table"].detach(), k["gid"], k["start"], k["end"],
+           torch.zeros(args.colors.shape[1], device=args.colors.device))
+    out = fwd(*kin, **k["geometry"])
     return dict(
-        kin=kin, geo=k["geometry"], fwd=(tfin, last), cot=cot, binning=binning,
+        kin=kin, geo=k["geometry"], out=out, fwd=out[2:], cot=cotangents(*out[:3]),
+        binning=binning,
         offsets=torch.stack([s.offsets for s in streams]),
         counts=torch.stack([s.counts for s in streams]),
         lane=torch.stack([s.lane for s in streams]),
     )
+
+
+def bwd_case(args, cams, dev, binning=None):
+    """K1's forward at ``cams`` and its cotangents (``table_case``)."""
+    import splatpu_torch.render.composite as composite
+    from splatpu_torch.render.api import demand_binning, measure_binning_demand
+
+    if binning is None:
+        binning = demand_binning(*measure_binning_demand(args, cams))
+    return table_case(args, cams, binning, composite.composite_fwd_cuda)
+
+
+def padded_case(args, cams, binning):
+    """The padded pair streams' K5 inputs (records gathered by gid), K5's
+    forward outputs on them, their cotangents, and the routing's inputs."""
+    import torch
+
+    import splatpu_torch.render.padded as padded
+    from splatpu_torch.render.binning import build_pair_stream, tile_grid
+    from splatpu_torch.render.composite import pack_table
+
+    streams = [build_pair_stream(args, cams.view(i), binning) for i in range(cams.num_views)]
+    table = torch.stack([pack_table(s.splats.mean2d, s.splats.conic, s.g_opacity,
+                                    s.splats.depth, s.g_colors) for s in streams]).detach()
+    gid = torch.stack([s.gid for s in streams])
+    rows = torch.arange(len(streams), device=gid.device)[:, None]
+    stack = lambda f: torch.stack([getattr(s, f) for s in streams])  # noqa: E731
+    tiles_x, tiles_y = tile_grid(cams.width, cams.height, 16)
+    geo = dict(tiles_x=tiles_x, tiles_y=tiles_y, width=cams.width, height=cams.height)
+    kin = (table[rows, gid.long()].contiguous(), stack("start"), stack("end"),
+           torch.zeros(args.colors.shape[1], device=gid.device))
+    out = padded.padded_fwd_cuda(*kin, **geo)
+    return dict(kin=kin, geo=geo, out=out, fwd=out[2:], cot=cotangents(*out[:3]), table=table,
+                gid=gid, pos=padded.routing_slots(stack("q_of_slot"), gid.shape[1]),
+                offsets=stack("emit_offsets"), counts=stack("emit_counts"))
 
 
 def ptxas_summary(log: str) -> dict:
@@ -189,8 +290,7 @@ def ptxas_summary(log: str) -> dict:
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            name = next((k for k in ("composite_fwd", "composite_bwd", "route_pairs")
-                         if k in line), None)
+            name = next((v for k, v in PTXAS_NAMES.items() if k in line), None)
         elif name and "Used" in line and "registers" in line:
             out[name] = line.split("ptxas info    :")[-1].strip()
     return out
@@ -235,17 +335,302 @@ def compare(got, ref) -> dict:
             fail(f"kernel {name} has non-finite values")
     err = {k: float((a - b).abs().max()) for k, a, b in zip(TOL, got[:3], ref[:3])}
     err["last_match"] = float((got[3] == ref[3]).float().mean())
+    err["last_mismatches"] = int((got[3] != ref[3]).sum())
     return err
 
 
-def check_errors(err: dict, where: str) -> None:
-    line = ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+def check_errors(err: dict, where: str, last_exact: bool = False) -> None:
+    line = ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}" for k, v in err.items())
     print(f"  {where}: max|d| {line}", flush=True)
     for k, tol in TOL.items():
         if not err[k] <= tol:
             fail(f"{where}: {k} max|d| {err[k]:.3e} > {tol}")
+    if last_exact and err["last_mismatches"]:
+        fail(f"{where}: last contributor differs on {err['last_mismatches']} pixels")
     if err["last_match"] < LAST_MATCH_MIN:
         fail(f"{where}: last contributor matches on {err['last_match']:.6f} < {LAST_MATCH_MIN}")
+
+
+def check_rows(where: str, errs: dict) -> None:
+    print(f"  {where}: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (scaled per row)", flush=True)
+    for k, v in errs.items():
+        if not v <= BWD_TOL:
+            fail(f"{where}: {k} scaled error {v:.3e} > {BWD_TOL}")
+
+
+def check_only(counts: dict, expected: set, where: str) -> None:
+    """Fail if a kernel outside ``expected`` launched on this path."""
+    stray = {k: n for k, n in counts.items() if n and k not in expected}
+    if stray:
+        fail(f"{where}: kernels of another path launched: {stray}")
+
+
+def fwd_bound(c, v, hw, evals, contribs, bytes_in):
+    """(bound ms, bytes ms, ops ms, bytes, ops) of a forward composite: its
+    inputs read once and its outputs (C + 3 values per pixel) written once;
+    the operations its data needs."""
+    bytes_moved = bytes_in + 4 * (c + v * hw * (c + 3))
+    ops = OPS_PER_EVAL * evals + ops_per_contribution(c) * contribs
+    t_bytes, t_ops = 1e3 * bytes_moved / PEAK_BYTES_S, 1e3 * ops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops), t_bytes, t_ops, bytes_moved, ops
+
+
+def bwd_work(kin_start, last, geo, n_live):
+    """Backward evaluations (every pixel from its tile's start to its last)
+    and live steps (the forward's contributions)."""
+    import torch
+
+    from splatpu_torch.render.composite import to_tiles
+
+    last_t = to_tiles(last[:, None].long(), geo["tiles_x"], geo["tiles_y"], geo.get("tile", 16),
+                      fill=-1)[..., 0]
+    start_t = kin_start.reshape(-1).long()[:, None]
+    evals = int(torch.where(last_t >= 0, last_t - start_t + 1, torch.zeros_like(last_t)).sum())
+    return evals, int(n_live.sum())
+
+
+def kernel_entry(name, source, replaces, by_path, err, ms, plain_ms, bound, library_ms=None):
+    bound_ms, t_bytes, t_ops = bound[:3]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": sum(by_path.values()), "launches_by_path": by_path, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": library_ms,
+    }
+
+
+def serve_path(name, net, cloud, config, expected_fwd, timesteps):
+    """``run_inference`` with every count zeroed just before and read just
+    after; checks the frames and that ``expected_fwd`` (and nothing else)
+    launched at every render.  Returns (counts, stats)."""
+    import numpy as np
+    import torch
+
+    from splatpu_torch.dynamics.deform import normalize_and_encode_means_and_rotations
+    from splatpu_torch.train.inference import run_inference
+
+    enc = normalize_and_encode_means_and_rotations(
+        cloud.means, cloud.rotation_quaternions, quirk_compat=config.quirk_compat)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    frames, stats = run_inference(net, cloud, enc, config, width=SERVE_SIZE[0],
+                                  height=SERVE_SIZE[1], device=DEVICE)
+    serve_s = time.perf_counter() - t0
+    counts = launch_counts()
+    step_ms = np.array(stats["timestep_ms"])
+    print(f"  {timesteps} timesteps + t=0, 5 x {SERVE_SIZE[0]}x{SERVE_SIZE[1]} each, renderer"
+          f" {config.renderer!r}, kernel {stats['binning'].kernel!r}, tile"
+          f" {stats['binning'].tile}: {serve_s:.2f} s wall", flush=True)
+    print(f"  pair budget {stats['max_pairs']} (demand {stats['demand_pairs']},"
+          f" span demand {stats['demand_span']} -> max_span {stats['max_span']});"
+          f" pairs used (max per view) {stats['pairs_used']}", flush=True)
+    print(f"  growths {stats['growths']}, residual overflow {stats['residual_overflow']},"
+          f" renders {stats['renders']}, non-finite values {stats['nonfinite_pixels']}",
+          flush=True)
+    print(f"  launches {counts}", flush=True)
+    print(f"  per-timestep ms (CUDA events): mean {step_ms.mean():.3f}"
+          f" median {np.median(step_ms):.3f} min {step_ms.min():.3f}"
+          f" max {step_ms.max():.3f}", flush=True)
+    for cam, fr in frames.items():
+        shape = (SERVE_SIZE[1], SERVE_SIZE[0], 3)
+        if len(fr) != timesteps + 1 or fr[0].shape != shape or fr[0].dtype != np.uint8:
+            fail(f"{name}: camera {cam}: {len(fr)} frames of {fr[0].shape} {fr[0].dtype}")
+        print(f"  camera {cam}: mean t=0 {fr[0].mean():.3f}, t={timesteps // 2}"
+              f" {fr[timesteps // 2].mean():.3f}, t={timesteps} {fr[-1].mean():.3f}", flush=True)
+    if stats["nonfinite_pixels"]:
+        fail(f"{name}: {stats['nonfinite_pixels']} non-finite image values")
+    if stats["residual_overflow"]:
+        fail(f"{name}: binning overflow left after growth")
+    if counts[expected_fwd] != stats["renders"] or stats["renders"] < timesteps + 1:
+        fail(f"{name}: {expected_fwd} launched {counts[expected_fwd]} times in"
+             f" {stats['renders']} renders, expected one per render, >= {timesteps + 1}")
+    check_only(counts, {expected_fwd}, name)
+    if all(fr[0].mean() < 1.0 for fr in frames.values()):
+        fail(f"{name}: every t=0 frame is black")
+    return counts, stats
+
+
+def train_path(name, cloud, views, tcfg, expected, n_steps):
+    """``train`` with every count zeroed just before and read just after;
+    checks each step's launches (``expected`` once each, nothing else),
+    losses, gradients and budget.  Returns (counts, log)."""
+    import numpy as np
+    import torch
+
+    import splatpu_torch.train.stage2 as stage2
+    from splatpu_torch.io.checkpoint import load_stage2_run
+
+    tnet, _ = load_stage2_run(RUN, device=DEVICE)
+    log = StepLog(tnet, expected)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    stage2.train(cloud, views, tcfg, logger=log, initial_net=tnet, device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = launch_counts()
+    step_ms = np.array([m["step_ms"] for _, m in log.steps])
+    print(f"  train(): {n_steps} steps in {train_s:.2f} s wall (setup and staging"
+          f" included); step ms (CUDA events) mean {step_ms.mean():.2f} median"
+          f" {np.median(step_ms):.2f} min {step_ms.min():.2f} max {step_ms.max():.2f};"
+          f" launches {counts}; growths {log.growths}", flush=True)
+    if len(log.steps) != n_steps:
+        fail(f"{name}: logged {len(log.steps)} steps, expected {n_steps}")
+    for k in expected:
+        if counts[k] != n_steps:
+            fail(f"{name}: {k} launched {counts[k]} times in {n_steps} steps, expected {n_steps}")
+    check_only(counts, set(expected), name)
+    for step_idx, m in log.steps:
+        if not np.isfinite(m["total"]):
+            fail(f"{name} step {step_idx}: non-finite loss {m['total']}")
+        if not (np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0):
+            fail(f"{name} step {step_idx}: grad_norm {m['grad_norm']}")
+        if any(m["launched"][k] != (1 if k in expected else 0) for k in COUNTERS):
+            fail(f"{name} step {step_idx}: kernel launches {m['launched']}")
+        if m["binning_overflow"] and step_idx not in log.growth_steps:
+            fail(f"{name} step {step_idx}: binning overflow not followed by growth")
+    if log.steps[-1][1]["binning_overflow"]:
+        fail(f"{name}: binning overflow left after growth at the last step")
+    if not log.changed_after_first:
+        fail(f"{name}: parameters unchanged after the first step")
+    return counts, log
+
+
+def compare_table_bwd(where, case, bwd, bwd_plain, impl):
+    """A table kernel's backward and the routing against their plain
+    versions, the ``CompositeTable`` backward ``impl`` against its plain
+    twin, and the backward + routing run twice, bitwise identical."""
+    import torch
+
+    import splatpu_torch.render.route as route
+    from splatpu_torch.render.exact import CompositeTable
+
+    kin, geo, cot = case["kin"], case["geo"], case["cot"]
+    rows = bwd(*kin, *case["fwd"], *cot, **geo)
+    torch.cuda.synchronize()
+    rows_ref = bwd_plain(*kin, *case["fwd"], *cot, **geo)
+    pos = route.pos_of_slot_of(case["offsets"], kin[1], case["lane"])
+    routed = route.route_pairs_cuda(rows, pos, case["offsets"], case["counts"])
+    routed_ref = route.route_pairs_plain(rows, pos, case["offsets"], case["counts"])
+    d_table = {}
+    for key in (impl, ("plain", impl[1])):
+        table = kin[0].clone().requires_grad_(True)
+        outs = CompositeTable.apply(table, kin[4], *kin[1:4], case["offsets"],
+                                    case["counts"], case["lane"], geo, key)
+        torch.autograd.backward(outs[:3], cot)
+        d_table[key[0]] = table.grad
+    again = route.route_pairs_cuda(bwd(*kin, *case["fwd"], *cot, **geo), pos,
+                                   case["offsets"], case["counts"])
+    torch.cuda.synchronize()
+    for name, x in (("rows", rows), ("routed", routed), ("d_table", d_table["cuda"])):
+        if not bool(torch.isfinite(x).all()) or not bool((x != 0).any()):
+            fail(f"{where}: {name} non-finite or all zero")
+    check_rows(f"{where}, pairs/view max {int(kin[3][:, -1].max())}", {
+        "rows": row_scaled_err(rows, rows_ref),
+        "routing": row_scaled_err(routed, routed_ref),
+        "CompositeTable d_table": row_scaled_err(d_table["cuda"], d_table["plain"]),
+    })
+    if not torch.equal(again, routed):
+        fail(f"{where}: backward + routing not bitwise identical across two runs")
+    print(f"  {where}: backward + routing bitwise identical across two runs", flush=True)
+
+
+def big_budget_case(case):
+    """K4 on one view whose four longest segments sit above pair position
+    2^24 in a gid of BIG_P slots, every other tile empty, against the plain
+    versions on the window of gid that holds those segments."""
+    import torch
+
+    import splatpu_torch.render.composite as composite
+
+    table, gid, start, end, bg = (x[:1] if x.dim() > 1 else x for x in case["kin"])
+    geo = case["geo"]
+    lengths = (end - start)[0]
+    tiles = torch.argsort(lengths, descending=True)[:BIG_TILES]
+    dev = gid.device
+    window = torch.cat([gid[0, int(start[0, t]):int(end[0, t])] for t in tiles.tolist()])
+    lens = lengths[tiles]
+    offs = torch.cumsum(lens, 0) - lens
+    start_w = torch.zeros_like(start)
+    end_w = torch.zeros_like(end)
+    start_w[0, tiles] = offs.int()
+    end_w[0, tiles] = (offs + lens).int()
+    n_win = window.numel()
+    gid_big = torch.zeros((1, BIG_P), dtype=torch.int32, device=dev)
+    gid_big[0, BIG_BASE:BIG_BASE + n_win] = window
+    start_b = torch.where(end_w > start_w, start_w + BIG_BASE, start_w)
+    end_b = torch.where(end_w > start_w, end_w + BIG_BASE, end_w)
+    got = composite.composite_manual_fwd_cuda(table, gid_big, start_b, end_b, bg, **geo)
+    torch.cuda.synchronize()
+    ref = composite.composite_manual_fwd_plain(table, window[None].contiguous(), start_w, end_w,
+                                               bg, **geo)
+    ref_last = torch.where(ref[3] >= 0, ref[3] + BIG_BASE, ref[3])
+    where = f"P = 2^24 + 2^20, {BIG_TILES} tiles ({n_win} pairs) above 2^24"
+    check_errors(compare(got, (*ref[:3], ref_last)), where, last_exact=True)
+    if not bool((got[3] >= BIG_BASE).any()):
+        fail(f"{where}: no pixel's last position lies above 2^24")
+    cot = cotangents(*got[:3])
+    last_w = torch.where(got[3] >= 0, got[3] - BIG_BASE, got[3])
+    rows = composite.composite_manual_bwd_cuda(table, gid_big, start_b, end_b, bg, got[2], got[3],
+                                               *cot, **geo)
+    again = composite.composite_manual_bwd_cuda(table, gid_big, start_b, end_b, bg, got[2],
+                                                got[3], *cot, **geo)
+    torch.cuda.synchronize()
+    rows_ref = composite.composite_manual_bwd_plain(table, window[None].contiguous(), start_w,
+                                                    end_w, bg, got[2], last_w, *cot, **geo)
+    inside = rows[0, BIG_BASE:BIG_BASE + n_win]
+    outside = max(float(rows[0, :BIG_BASE].abs().max()),
+                  float(rows[0, BIG_BASE + n_win:].abs().max()))
+    check_rows(where, {"rows": row_scaled_err(inside, rows_ref[0])})
+    if outside != 0.0 or not bool((inside != 0).any()):
+        fail(f"{where}: rows outside the window {outside}, or none inside")
+    if not torch.equal(rows, again):
+        fail(f"{where}: backward not bitwise identical across two runs")
+    print(f"  {where}: rows outside the window zero; backward bitwise identical across two"
+          f" runs; rows {tuple(rows.shape)}", flush=True)
+
+
+def compare_padded_case(where, args, cams, binning):
+    """K5's forward and backward, the routing over the padded slots and the
+    ``CompositeG`` backward, each against its plain version."""
+    import torch
+
+    import splatpu_torch.render.padded as padded
+    import splatpu_torch.render.route as route
+
+    case = padded_case(args, cams, binning)
+    kin, geo, cot = case["kin"], case["geo"], case["cot"]
+    torch.cuda.synchronize()
+    ref = padded.padded_fwd_plain(*kin, **geo)
+    check_errors(compare(case["out"], ref), where, last_exact=True)
+    rows = padded.padded_bwd_cuda(*kin, *case["fwd"], *cot, **geo)
+    torch.cuda.synchronize()
+    rows_ref = padded.padded_bwd_plain(*kin, *case["fwd"], *cot, **geo)
+    routed = route.route_pairs_cuda(rows, case["pos"], case["offsets"], case["counts"])
+    routed_ref = route.route_pairs_plain(rows, case["pos"], case["offsets"], case["counts"])
+    d_table = {}
+    for impl in ("cuda", "plain"):
+        table = case["table"].clone().requires_grad_(True)
+        outs = padded.CompositeG.apply(table, kin[3], case["gid"], kin[1], kin[2], case["pos"],
+                                       case["offsets"], case["counts"], geo, impl)
+        torch.autograd.backward(outs[:3], cot)
+        d_table[impl] = table.grad
+    again = route.route_pairs_cuda(padded.padded_bwd_cuda(*kin, *case["fwd"], *cot, **geo),
+                                   case["pos"], case["offsets"], case["counts"])
+    torch.cuda.synchronize()
+    for name, x in (("rows", rows), ("routed", routed), ("d_table", d_table["cuda"])):
+        if not bool(torch.isfinite(x).all()) or not bool((x != 0).any()):
+            fail(f"{where}: {name} non-finite or all zero")
+    check_rows(f"{where}, padded length {kin[0].shape[1]}", {
+        "rows": row_scaled_err(rows, rows_ref),
+        "routing": row_scaled_err(routed, routed_ref),
+        "CompositeG d_table": row_scaled_err(d_table["cuda"], d_table["plain"]),
+    })
+    if not torch.equal(again, routed):
+        fail(f"{where}: backward + routing not bitwise identical across two runs")
+    print(f"  {where}: backward + routing bitwise identical across two runs", flush=True)
 
 
 def main() -> int:
@@ -261,13 +646,14 @@ def main() -> int:
     import numpy as np
 
     import splatpu_torch.render.composite as composite
+    import splatpu_torch.render.padded as padded
+    import splatpu_torch.render.route as route
     from splatpu_torch import _build
-    from splatpu_torch.core.types import activate_cloud, stack_cameras
-    from splatpu_torch.dynamics.deform import normalize_and_encode_means_and_rotations
+    from splatpu_torch.core.types import Camera, RenderArgs, activate_cloud, stack_cameras
     from splatpu_torch.io.checkpoint import load_cloud, load_stage2_run
     from splatpu_torch.render.api import demand_binning, measure_binning_demand
     from splatpu_torch.render.exact import composite_inputs
-    from splatpu_torch.train.inference import create_orbit_cameras, run_inference
+    from splatpu_torch.train.inference import create_orbit_cameras
     from splatpu_torch.train.stage2 import Stage2Config, compact_cloud
 
     dev = torch.device(DEVICE)
@@ -284,14 +670,16 @@ def main() -> int:
     with phase("build", 200):
         _build.load_library()
         print(f"  nvcc: {_build.build_seconds:.2f} s", flush=True)
-        for line in _build.build_log.splitlines():
-            if "ptxas" in line or "spill" in line:
-                print(f"  {line.strip()}", flush=True)
+        regs = ptxas_summary(_build.build_log)
+        for k, v in regs.items():
+            print(f"  ptxas {k}: {v}", flush=True)
+        if re.search(r"[1-9]\d* bytes spill", _build.build_log):
+            print("  (some instances spill: see the log's spill lines)", flush=True)
 
     with phase("compare", 180):
         cloud = compact_cloud(load_cloud(CLOUD, device=dev))
-        if cloud.capacity != 100585:
-            fail(f"expected 100585 alive Gaussians, got {cloud.capacity}")
+        if cloud.capacity != N_GAUSSIANS:
+            fail(f"expected {N_GAUSSIANS} alive Gaussians, got {cloud.capacity}")
         args = activate_cloud(cloud)
         w, h = COMPARE_SIZE
         cams_small = stack_cameras(list(create_orbit_cameras(w, h, device=dev).values()))
@@ -306,104 +694,73 @@ def main() -> int:
         check_errors(compare(got, ref), f"{w}x{h}")
 
     with phase("compare_bwd", 240):
-        import splatpu_torch.render.route as route
-        from splatpu_torch.core.types import Camera
-        from splatpu_torch.render.exact import CompositeTable
-        from splatpu_torch.tools.train_scene import rig_cameras
-
-        def rig5(w, h):
-            cams = rig_cameras(w, h)[:5]
-            return Camera(w2c=torch.from_numpy(np.stack([c[0] for c in cams])).to(dev),
-                          K=torch.from_numpy(np.stack([c[1] for c in cams])).to(dev),
-                          width=w, height=h)
-
         for w, h in (COMPARE_SIZE, SERVE_SIZE):
-            case = bwd_case(args, rig5(w, h), dev)
-            kin, geo, cot = case["kin"], case["geo"], case["cot"]
-            rows = composite.composite_bwd_cuda(*kin, *case["fwd"], *cot, **geo)
+            case = bwd_case(args, rig_cams(dev, w, h, 5), dev)
+            compare_table_bwd(f"K2 {w}x{h}, V=5", case, composite.composite_bwd_cuda,
+                              composite.composite_bwd_plain, ("cuda", "grid"))
+            del case
+
+    # Colours from a seeded generator for the 9-channel comparisons.
+    colors9 = torch.from_numpy(np.random.default_rng(9).uniform(
+        0.0, 1.0, (cloud.capacity, 9)).astype(np.float32)).to(dev)
+    args_by_c = {3: args, 9: RenderArgs(args.means3d, colors9, args.rotations, args.opacities,
+                                        args.scales)}
+
+    with phase("compare_manual", 300):
+        w, h = COMPARE_SIZE
+        for c in CHANNELS:
+            binning = dataclasses.replace(
+                demand_binning(*measure_binning_demand(args_by_c[c], cams_small)), kernel="manual")
+            case = table_case(args_by_c[c], cams_small, binning, composite.composite_manual_fwd_cuda)
             torch.cuda.synchronize()
-            rows_ref = composite.composite_bwd_plain(*kin, *case["fwd"], *cot, **geo)
-            pos = route.pos_of_slot_of(case["offsets"], kin[1], case["lane"])
-            routed = route.route_pairs_cuda(rows, pos, case["offsets"], case["counts"])
-            routed_ref = route.route_pairs_plain(rows, pos, case["offsets"], case["counts"])
-            d_table = {}
-            for impl in ("cuda", "plain"):
-                table = kin[0].clone().requires_grad_(True)
-                outs = CompositeTable.apply(table, kin[4], *kin[1:4], case["offsets"],
-                                            case["counts"], case["lane"], geo, impl)
-                torch.autograd.backward(outs[:3], cot)
-                d_table[impl] = table.grad
-            again = route.route_pairs_cuda(
-                composite.composite_bwd_cuda(*kin, *case["fwd"], *cot, **geo), pos,
-                case["offsets"], case["counts"])
-            torch.cuda.synchronize()
-            for name, x in (("K2 rows", rows), ("routed", routed), ("d_table", d_table["cuda"])):
-                if not bool(torch.isfinite(x).all()) or not bool((x != 0).any()):
-                    fail(f"{w}x{h}: {name} non-finite or all zero")
-            err = {
-                "K2 rows": row_scaled_err(rows, rows_ref),
-                "routing": row_scaled_err(routed, routed_ref),
-                "CompositeTable d_table": row_scaled_err(d_table["cuda"], d_table["plain"]),
-            }
-            print(f"  {w}x{h}, V=5, pairs/view max {int(kin[3][:, -1].max())}: "
-                  + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
-                  + f" (scaled per row); max abs rows {float((rows - rows_ref).abs().max()):.3e},"
-                  f" routed {float((routed - routed_ref).abs().max()):.3e}", flush=True)
-            for k, v in err.items():
-                if not v <= BWD_TOL:
-                    fail(f"{w}x{h}: {k} scaled error {v:.3e} > {BWD_TOL}")
-            if not torch.equal(again, routed):
-                fail(f"{w}x{h}: K2 + routing not bitwise identical across two runs")
-            print(f"  {w}x{h}: K2 + routing bitwise identical across two runs", flush=True)
-            del case, rows, rows_ref, d_table
+            ref = composite.composite_manual_fwd_plain(*case["kin"], **case["geo"])
+            check_errors(compare(case["out"], ref), f"K4 {w}x{h}, V=5, C={c}", last_exact=True)
+            compare_table_bwd(f"K4 {w}x{h}, V=5, C={c}", case, composite.composite_manual_bwd_cuda,
+                              composite.composite_manual_bwd_plain, ("cuda", "manual"))
+        big_budget_case(case)
+        del case
+
+    with phase("compare_padded", 300):
+        for c in CHANNELS:
+            binning16 = demand_binning(*measure_binning_demand(args_by_c[c], cams_small, tile=16),
+                                       tile=16)
+            compare_padded_case(f"K5 {w}x{h}, V=5, C={c}", args_by_c[c], cams_small, binning16)
+        del args_by_c
+
+    net, head = load_stage2_run(RUN, device=dev)
+    c = net.config
+    print(f"  net: hidden {c.hidden_dim}, blocks {c.residual_blocks}, in {c.input_dim},"
+          f" out {c.output_dim}; head {head}", flush=True)
+    orbit = stack_cameras(list(create_orbit_cameras(*SERVE_SIZE, device=dev).values()))
+    served = {}
 
     with phase("serve", 420):
-        net, head = load_stage2_run(RUN, device=dev)
-        c = net.config
-        print(f"  net: hidden {c.hidden_dim}, blocks {c.residual_blocks}, in {c.input_dim},"
-              f" out {c.output_dim}; head {head}", flush=True)
-        config = Stage2Config(
-            timestep_count=TIMESTEPS, renderer="cuda", quirk_compat=head["quirk_compat"])
-        enc = normalize_and_encode_means_and_rotations(
-            cloud.means, cloud.rotation_quaternions, quirk_compat=config.quirk_compat)
-        torch.cuda.synchronize()
-        composite.LAUNCHES = 0
-        t0 = time.perf_counter()
-        frames, stats = run_inference(net, cloud, enc, config, width=SERVE_SIZE[0],
-                                      height=SERVE_SIZE[1], device=dev)
-        serve_s = time.perf_counter() - t0
-        launches = composite.LAUNCHES
-        step_ms = np.array(stats["timestep_ms"])
-        print(f"  {TIMESTEPS} timesteps + t=0, 5 x {SERVE_SIZE[0]}x{SERVE_SIZE[1]} each:"
-              f" {serve_s:.2f} s wall", flush=True)
-        print(f"  pair budget {stats['max_pairs']} (demand {stats['demand_pairs']},"
-              f" span demand {stats['demand_span']} -> max_span {stats['max_span']});"
-              f" pairs used (max per view) {stats['pairs_used']}", flush=True)
-        print(f"  growths {stats['growths']}, residual overflow {stats['residual_overflow']},"
-              f" renders {stats['renders']}, non-finite values {stats['nonfinite_pixels']}",
-              flush=True)
-        print(f"  composite_fwd launches {launches}", flush=True)
-        print(f"  per-timestep ms (CUDA events): mean {step_ms.mean():.3f}"
-              f" median {np.median(step_ms):.3f} min {step_ms.min():.3f}"
-              f" max {step_ms.max():.3f}", flush=True)
-        for name, fr in frames.items():
-            shape = (SERVE_SIZE[1], SERVE_SIZE[0], 3)
-            if len(fr) != TIMESTEPS + 1 or fr[0].shape != shape or fr[0].dtype != np.uint8:
-                fail(f"camera {name}: {len(fr)} frames of {fr[0].shape} {fr[0].dtype}")
-            print(f"  camera {name}: mean t=0 {fr[0].mean():.3f}, t={TIMESTEPS // 2}"
-                  f" {fr[TIMESTEPS // 2].mean():.3f}, t={TIMESTEPS} {fr[-1].mean():.3f}", flush=True)
-        if stats["nonfinite_pixels"]:
-            fail(f"{stats['nonfinite_pixels']} non-finite image values")
-        if stats["residual_overflow"]:
-            fail("binning overflow left after growth")
-        if launches < TIMESTEPS + 1:
-            fail(f"composite_fwd launched {launches} times, expected >= {TIMESTEPS + 1}")
-        if all(fr[0].mean() < 1.0 for fr in frames.values()):
-            fail("every t=0 frame is black")
-        del frames
+        config = Stage2Config(timestep_count=TIMESTEPS, renderer="cuda",
+                              quirk_compat=head["quirk_compat"])
+        served["serve"] = serve_path("serve", net, cloud, config, "composite_fwd", TIMESTEPS)
 
+    with phase("serve_manual", 240):
+        demand = measure_binning_demand(args, orbit)
+        config = Stage2Config(timestep_count=NEW_SERVE_TIMESTEPS, renderer="cuda",
+                              quirk_compat=head["quirk_compat"],
+                              binning=demand_binning(*demand, overrides={"kernel": "manual"}))
+        print(f"  depth cut: {NEW_SERVE_TIMESTEPS} timesteps (config 3 serves {TIMESTEPS})",
+              flush=True)
+        served["serve_manual"] = serve_path("serve_manual", net, cloud, config,
+                                            "composite_manual_fwd", NEW_SERVE_TIMESTEPS)
+
+    with phase("serve_padded", 240):
+        config = Stage2Config(
+            timestep_count=NEW_SERVE_TIMESTEPS, renderer="cuda_padded",
+            quirk_compat=head["quirk_compat"],
+            binning=demand_binning(*measure_binning_demand(args, orbit, tile=16), tile=16))
+        print(f"  depth cut: {NEW_SERVE_TIMESTEPS} timesteps (config 3 serves {TIMESTEPS})",
+              flush=True)
+        served["serve_padded"] = serve_path("serve_padded", net, cloud, config, "padded_fwd",
+                                            NEW_SERVE_TIMESTEPS)
+
+    trained = {}
     with phase("train", 480):
-        import splatpu_torch.train.stage2 as stage2
         from splatpu_torch.tools.train_scene import render_targets
 
         t0 = time.perf_counter()
@@ -412,94 +769,85 @@ def main() -> int:
         print(f"  targets: {TRAIN_TIMESTEPS} timesteps x {len(views[0])} cameras,"
               f" {SERVE_SIZE[0]}x{SERVE_SIZE[1]} uint8, rendered in"
               f" {time.perf_counter() - t0:.2f} s", flush=True)
-        tnet, thead = load_stage2_run(RUN, device=dev)
-        tc = tnet.config
-        tcfg = stage2.Stage2Config(
+        tc = net.config
+        base_cfg = Stage2Config(
             total_iterations=TRAIN_ITERATIONS, warmup_iterations=1,
-            learning_rate=thead["lr"], hidden_dim=tc.hidden_dim,
+            learning_rate=head["lr"], hidden_dim=tc.hidden_dim,
             residual_blocks=tc.residual_blocks, views_per_step=5,
             timestep_count=TRAIN_TIMESTEPS, renderer="cuda",
-            quirk_compat=thead["quirk_compat"], view_staging="device_u8",
+            quirk_compat=head["quirk_compat"], view_staging="device_u8",
             timestep_order="shuffled", overflow_check_every=1,
-            **{k: thead[k] for k in ("delta_scale", "double_residual", "zero_init_head",
-                                     "time_gate_head")},
+            **{k: head[k] for k in ("delta_scale", "double_residual", "zero_init_head",
+                                    "time_gate_head")},
         )
         print(f"  depth cut: {TRAIN_TIMESTEPS} timesteps x {TRAIN_ITERATIONS} sequence"
               f" iterations (config 3: 150 x 40); width untouched", flush=True)
-        log = StepLog(tnet)
-        torch.cuda.synchronize()
-        composite.LAUNCHES = composite.BWD_LAUNCHES = route.LAUNCHES = 0
-        t0 = time.perf_counter()
-        tnet, _, _, _ = stage2.train(cloud, views, tcfg, logger=log, initial_net=tnet, device=dev)
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        train_launches = {"composite_fwd": composite.LAUNCHES,
-                          "composite_bwd": composite.BWD_LAUNCHES,
-                          "route_pairs": route.LAUNCHES}
-        n_steps = TRAIN_ITERATIONS * TRAIN_TIMESTEPS
-        step_ms = np.array([m["step_ms"] for _, m in log.steps])
-        print(f"  train(): {n_steps} steps in {train_s:.2f} s wall (setup and staging"
-              f" included); step ms (CUDA events) mean {step_ms.mean():.2f} median"
-              f" {np.median(step_ms):.2f} min {step_ms.min():.2f} max {step_ms.max():.2f};"
-              f" launches {train_launches}; growths {log.growths}", flush=True)
-        if len(log.steps) != n_steps:
-            fail(f"train logged {len(log.steps)} steps, expected {n_steps}")
-        for name, n in train_launches.items():
-            if n != n_steps:
-                fail(f"{name} launched {n} times in {n_steps} training steps, expected {n_steps}")
-        for step_idx, m in log.steps:
-            if not np.isfinite(m["total"]):
-                fail(f"step {step_idx}: non-finite loss {m['total']}")
-            if not (np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0):
-                fail(f"step {step_idx}: grad_norm {m['grad_norm']}")
-            if any(d != 1 for d in m["launched"]):
-                fail(f"step {step_idx}: kernel launches {m['launched']}, expected one each")
-            if m["binning_overflow"] and step_idx not in log.growth_steps:
-                fail(f"step {step_idx}: binning overflow not followed by growth")
-        if log.steps[-1][1]["binning_overflow"]:
-            fail("binning overflow left after growth at the last step")
-        if not log.changed_after_first:
-            fail("parameters unchanged after the first step")
+        trained["train"] = train_path(
+            "train", cloud, views, base_cfg, ("composite_fwd", "composite_bwd", "route_pairs"),
+            TRAIN_ITERATIONS * TRAIN_TIMESTEPS)
         train_binning = dataclasses.replace(
-            demand_binning(*measure_binning_demand(args, rig_all(dev))),
-            max_pairs=int(log.steps[-1][1]["max_pairs"]))
+            demand_binning(*measure_binning_demand(args, rig_cams(dev, *SERVE_SIZE))),
+            max_pairs=int(trained["train"][1].steps[-1][1]["max_pairs"]))
+        views = views[:NEW_TRAIN_TIMESTEPS]
+
+    new_cfg = dataclasses.replace(base_cfg, total_iterations=NEW_TRAIN_ITERATIONS,
+                                  timestep_count=NEW_TRAIN_TIMESTEPS)
+    new_steps = NEW_TRAIN_ITERATIONS * NEW_TRAIN_TIMESTEPS
+    with phase("train_manual", 300):
+        print(f"  depth cut: {NEW_TRAIN_TIMESTEPS} timesteps x {NEW_TRAIN_ITERATIONS} sequence"
+              f" iterations; binning_overrides kernel='manual'", flush=True)
+        trained["train_manual"] = train_path(
+            "train_manual", cloud, views,
+            dataclasses.replace(new_cfg, binning_overrides={"kernel": "manual"}),
+            ("composite_manual_fwd", "composite_manual_bwd", "route_pairs"), new_steps)
+
+    with phase("train_padded", 300):
+        t0_cams = Camera(w2c=torch.from_numpy(np.stack([v.w2c for v in views[0]])).to(dev),
+                         K=torch.from_numpy(np.stack([v.K for v in views[0]])).to(dev),
+                         width=SERVE_SIZE[0], height=SERVE_SIZE[1])
+        padded_binning = demand_binning(*measure_binning_demand(args, t0_cams, tile=16), tile=16,
+                                        headroom=new_cfg.binning_headroom)
+        print(f"  depth cut: {NEW_TRAIN_TIMESTEPS} timesteps x {NEW_TRAIN_ITERATIONS} sequence"
+              f" iterations; renderer 'cuda_padded', 16 px budget {padded_binning.max_pairs}",
+              flush=True)
+        trained["train_padded"] = train_path(
+            "train_padded", cloud, views,
+            dataclasses.replace(new_cfg, renderer="cuda_padded", binning=padded_binning),
+            ("padded_fwd", "padded_bwd", "route_pairs"), new_steps)
         del views
 
     with phase("measure", 300):
-        cams = stack_cameras(list(create_orbit_cameras(*SERVE_SIZE, device=dev).values()))
-        _, k = composite_inputs(args, cams, stats["binning"])
+        _, k = composite_inputs(args, orbit, served["serve"][1]["binning"])
         kin = (k["table"], k["gid"], k["start"], k["end"], bg)
         geo = k["geometry"]
         got = composite.composite_fwd_cuda(*kin, **geo)
         *ref, n_eval, n_contrib = composite.composite_fwd_plain(*kin, **geo, with_counts=True)
         err = compare(got, ref)
-        check_errors(err, f"{SERVE_SIZE[0]}x{SERVE_SIZE[1]} (t=0 inputs)")
+        check_errors(err, f"K1 {SERVE_SIZE[0]}x{SERVE_SIZE[1]} (t=0 inputs)")
         ms = cuda_ms(lambda: composite.composite_fwd_cuda(*kin, **geo), reps=20, warmup=3)
         plain_ms = cuda_ms(lambda: composite.composite_fwd_plain(*kin, **geo), reps=2, warmup=1)
         v, n, rec = k["table"].shape
-        c = rec - 7
         pairs = int(k["end"][:, -1].sum())
         hw = geo["width"] * geo["height"]
-        bytes_moved = 4 * (v * n * rec + pairs + 2 * k["start"].numel() + c + v * hw * (c + 3))
         evals, contribs = int(n_eval.sum()), int(n_contrib.sum())
-        ops = OPS_PER_EVAL * evals + ops_per_contribution(c) * contribs
-        t_bytes, t_ops = 1e3 * bytes_moved / PEAK_BYTES_S, 1e3 * ops / PEAK_FP32_FLOPS
-        bound_ms = max(t_bytes, t_ops)
+        k1_bound = fwd_bound(3, v, hw, evals, contribs,
+                             4 * (v * n * rec + pairs + 2 * k["start"].numel()))
         print(f"  V={v} N={n} pairs={pairs}; evaluations {evals}, contributions {contribs}",
               flush=True)
-        print(f"  kernel {ms:.4f} ms/launch, plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms"
-              f" (bytes {bytes_moved} -> {t_bytes:.4f} ms, FP32 ops {ops} -> {t_ops:.4f} ms)",
-              flush=True)
+        print(f"  K1 {ms:.4f} ms/launch, plain {plain_ms:.2f} ms; bound {k1_bound[0]:.4f} ms"
+              f" (bytes {k1_bound[3]} -> {k1_bound[1]:.4f} ms, FP32 ops {k1_bound[4]} ->"
+              f" {k1_bound[2]:.4f} ms)", flush=True)
+        k1 = dict(err=max(err["image"], err["depth"], err["final_T"]), ms=ms, plain_ms=plain_ms,
+                  bound=k1_bound)
 
-    with phase("measure_bwd", 300):
-        from splatpu_torch.render.composite import to_tiles
-
-        case = bwd_case(args, rig5(*SERVE_SIZE), dev, binning=train_binning)
+    def measure_table_bwd(label, case, bwd, bwd_plain):
+        """A table backward and the routing at the training shapes: errors,
+        times, the index_add_ yardstick and both bounds."""
         kin, geo, cot, (tfin, last) = case["kin"], case["geo"], case["cot"], case["fwd"]
         offsets, counts, lane = case["offsets"], case["counts"], case["lane"]
-        bwd = lambda: composite.composite_bwd_cuda(*kin, tfin, last, *cot, **geo)  # noqa: E731
-        bwd_plain = lambda: composite.composite_bwd_plain(*kin, tfin, last, *cot, **geo)  # noqa: E731
-        rows = bwd()
+        run = lambda: bwd(*kin, tfin, last, *cot, **geo)  # noqa: E731
+        run_plain = lambda: bwd_plain(*kin, tfin, last, *cot, **geo)  # noqa: E731
+        rows = run()
         pos = route.pos_of_slot_of(offsets, kin[1], lane)
         routed = route.route_pairs_cuda(rows, pos, offsets, counts)
         v, n, rec = kin[0].shape
@@ -512,94 +860,157 @@ def main() -> int:
         kept_rows = rows[kept]
         library = lambda: torch.zeros((v * n, rec), device=dev).index_add_(0, index, kept_rows)  # noqa: E731
         lib_err = float((library().reshape(v, n, rec) - routed).abs().max())
-        rows_ref = bwd_plain()
+        rows_ref = run_plain()
         routed_ref = route.route_pairs_plain(rows, pos, offsets, counts)
-        train_err = {"K2 rows": row_scaled_err(rows, rows_ref),
-                     "routing": row_scaled_err(routed, routed_ref)}
-        print("  at the training shapes: " + ", ".join(
-            f"{k} {v:.3e}" for k, v in train_err.items()) + " (scaled per row)", flush=True)
-        for k, e in train_err.items():
-            if not e <= BWD_TOL:
-                fail(f"training shapes: {k} scaled error {e:.3e} > {BWD_TOL}")
-        k2_abs = float((rows - rows_ref).abs().max())
-        k3_abs = float((routed - routed_ref).abs().max())
+        check_rows(f"{label} at the training shapes", {
+            "rows": row_scaled_err(rows, rows_ref), "routing": row_scaled_err(routed, routed_ref)})
+        errs = (float((rows - rows_ref).abs().max()), float((routed - routed_ref).abs().max()))
         del rows_ref
-        k2_ms = cuda_ms(bwd, reps=20, warmup=3)
-        k2_plain_ms = cuda_ms(bwd_plain, reps=2, warmup=1)
-        k3_ms = cuda_ms(lambda: route.route_pairs_cuda(rows, pos, offsets, counts), reps=50, warmup=5)
-        k3_plain_ms = cuda_ms(lambda: route.route_pairs_plain(rows, pos, offsets, counts), reps=5,
-                              warmup=1)
-        k3_lib_ms = cuda_ms(library, reps=50, warmup=5)
-        # The work these inputs need: every (pixel, pair) from the tile's start
-        # to the pixel's last is evaluated; the contributing ones are live.
-        *_, n_eval_f, n_live = composite.composite_fwd_plain(*kin, **geo, with_counts=True)
-        last_t = to_tiles(last[:, None].long(), geo["tiles_x"], geo["tiles_y"], geo["tile"],
-                          fill=-1)[..., 0]
-        start_t = kin[2].reshape(-1).long()[:, None]
-        evals = int(torch.where(last_t >= 0, last_t - start_t + 1, torch.zeros_like(last_t)).sum())
-        live = int(n_live.sum())
+        b_ms = cuda_ms(run, reps=20, warmup=3)
+        b_plain_ms = cuda_ms(run_plain, reps=2, warmup=1)
+        r_ms = cuda_ms(lambda: route.route_pairs_cuda(rows, pos, offsets, counts), reps=50,
+                       warmup=5)
+        r_plain_ms = cuda_ms(lambda: route.route_pairs_plain(rows, pos, offsets, counts),
+                             reps=5, warmup=1)
+        r_lib_ms = cuda_ms(library, reps=50, warmup=5)
+        fwd_plain = (composite.composite_fwd_plain if bwd is composite.composite_bwd_cuda
+                     else composite.composite_manual_fwd_plain)
+        *_, n_live = fwd_plain(*kin, **geo, with_counts=True)
+        evals, live = bwd_work(kin[2], last, geo, n_live)
         hw = geo["width"] * geo["height"]
         pairs = int(kin[3][:, -1].sum())
         n_kept = int(kept.sum())
-        k2_bytes = 4 * (v * n * rec + pairs + 2 * kin[2].numel() + c + v * hw * (c + 4)
-                        + v * p * rec)
-        k2_ops = OPS_PER_EVAL * evals + ops_bwd_per_live(c) * live
-        k2_tb, k2_to = 1e3 * k2_bytes / PEAK_BYTES_S, 1e3 * k2_ops / PEAK_FP32_FLOPS
-        k3_bytes = 4 * (n_kept * rec + v * p + 2 * v * n + v * n * rec)
-        k3_ops = n_kept * rec
-        k3_tb, k3_to = 1e3 * k3_bytes / PEAK_BYTES_S, 1e3 * k3_ops / PEAK_FP32_FLOPS
-        regs = ptxas_summary(_build.build_log)
+        b_bytes = 4 * (v * n * rec + pairs + 2 * kin[2].numel() + c + v * hw * (c + 4)
+                       + v * p * rec)
+        b_ops = OPS_PER_EVAL * evals + ops_bwd_per_live(c) * live
+        b_tb, b_to = 1e3 * b_bytes / PEAK_BYTES_S, 1e3 * b_ops / PEAK_FP32_FLOPS
+        r_bytes = 4 * (n_kept * rec + v * p + 2 * v * n + v * n * rec)
+        r_ops = n_kept * rec
+        r_tb, r_to = 1e3 * r_bytes / PEAK_BYTES_S, 1e3 * r_ops / PEAK_FP32_FLOPS
         print(f"  V={v} N={n} P={p} pairs={pairs} kept={n_kept}; backward evaluations {evals},"
               f" live {live}", flush=True)
-        print(f"  K2 {k2_ms:.4f} ms/launch, plain {k2_plain_ms:.2f} ms; bound"
-              f" {max(k2_tb, k2_to):.4f} ms (bytes {k2_bytes} -> {k2_tb:.4f} ms, FP32 ops"
-              f" {k2_ops} -> {k2_to:.4f} ms); ptxas {regs.get('composite_bwd')}", flush=True)
-        print(f"  routing {k3_ms:.4f} ms/launch, plain {k3_plain_ms:.3f} ms, index_add_"
-              f" {k3_lib_ms:.4f} ms (max |d| vs kernel {lib_err:.3e}); bound"
-              f" {max(k3_tb, k3_to):.4f} ms (bytes {k3_bytes} -> {k3_tb:.4f} ms, adds"
-              f" {k3_ops} -> {k3_to:.5f} ms); ptxas {regs.get('route_pairs')}", flush=True)
-        print(f"  K1 ptxas {regs.get('composite_fwd')}", flush=True)
+        print(f"  {label} {b_ms:.4f} ms/launch, plain {b_plain_ms:.2f} ms; bound"
+              f" {max(b_tb, b_to):.4f} ms (bytes {b_bytes} -> {b_tb:.4f} ms, FP32 ops"
+              f" {b_ops} -> {b_to:.4f} ms)", flush=True)
+        print(f"  routing {r_ms:.4f} ms/launch, plain {r_plain_ms:.3f} ms, index_add_"
+              f" {r_lib_ms:.4f} ms (max |d| vs kernel {lib_err:.3e}); bound"
+              f" {max(r_tb, r_to):.4f} ms (bytes {r_bytes} -> {r_tb:.4f} ms, adds"
+              f" {r_ops} -> {r_to:.5f} ms)", flush=True)
+        return (dict(err=errs[0], ms=b_ms, plain_ms=b_plain_ms, bound=(max(b_tb, b_to), b_tb, b_to)),
+                dict(err=errs[1], ms=r_ms, plain_ms=r_plain_ms, bound=(max(r_tb, r_to), r_tb, r_to),
+                     library_ms=r_lib_ms))
 
-    kernels = [{
-        "name": "composite_fwd",
-        "route": "cuda",
-        "source": "splatpu_torch/csrc/composite_fwd.cu",
-        "replaces": "splatpu/render/exact.py:856 (_fwd_kernel_grid)",
-        "launches": launches + train_launches["composite_fwd"],
-        "launches_by_path": {"serve": launches, "train": train_launches["composite_fwd"]},
-        "max_abs_err": max(err["image"], err["depth"], err["final_T"]),
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
-    }, {
-        "name": "composite_bwd",
-        "route": "cuda",
-        "source": "splatpu_torch/csrc/composite_bwd.cu",
-        "replaces": "splatpu/render/exact.py:994 (_bwd_kernel_grid)",
-        "launches": train_launches["composite_bwd"],
-        "launches_by_path": {"train": train_launches["composite_bwd"]},
-        "max_abs_err": k2_abs,
-        "ms": k2_ms,
-        "plain_ms": k2_plain_ms,
-        "bound_ms": max(k2_tb, k2_to),
-        "bound_by": "operations" if k2_to >= k2_tb else "bytes",
-        "library_ms": None,
-    }, {
-        "name": "route_pairs",
-        "route": "cuda",
-        "source": "splatpu_torch/csrc/route_pairs.cu",
-        "replaces": "splatpu/render/exact.py:1320 (_cumsum_pairs_pallas)",
-        "launches": train_launches["route_pairs"],
-        "launches_by_path": {"train": train_launches["route_pairs"]},
-        "max_abs_err": k3_abs,
-        "ms": k3_ms,
-        "plain_ms": k3_plain_ms,
-        "bound_ms": max(k3_tb, k3_to),
-        "bound_by": "operations" if k3_to >= k3_tb else "bytes",
-        "library_ms": k3_lib_ms,
-    }]
+    with phase("measure_bwd", 300):
+        case = bwd_case(args, rig_cams(dev, *SERVE_SIZE, 5), dev, binning=train_binning)
+        k2, k3 = measure_table_bwd("K2", case, composite.composite_bwd_cuda,
+                                   composite.composite_bwd_plain)
+        del case
+
+    with phase("measure_manual", 300):
+        b = served["serve_manual"][1]["binning"]
+        case = table_case(args, orbit, b, composite.composite_manual_fwd_cuda)
+        kin, geo = case["kin"], case["geo"]
+        *ref, n_eval, n_contrib = composite.composite_manual_fwd_plain(*kin, **geo, with_counts=True)
+        err = compare(case["out"], ref)
+        check_errors(err, f"K4 {SERVE_SIZE[0]}x{SERVE_SIZE[1]} (t=0 inputs, C=3)")
+        ms = cuda_ms(lambda: composite.composite_manual_fwd_cuda(*kin, **geo), reps=20, warmup=3)
+        plain_ms = cuda_ms(lambda: composite.composite_manual_fwd_plain(*kin, **geo), reps=2,
+                           warmup=1)
+        v, n, rec = kin[0].shape
+        pairs = int(kin[3][:, -1].sum())
+        bound = fwd_bound(3, v, SERVE_SIZE[0] * SERVE_SIZE[1], int(n_eval.sum()),
+                          int(n_contrib.sum()), 4 * (v * n * rec + pairs + 2 * kin[2].numel()))
+        print(f"  K4 fwd {ms:.4f} ms/launch, plain {plain_ms:.2f} ms; bound {bound[0]:.4f} ms"
+              f" (bytes {bound[3]} -> {bound[1]:.4f} ms, FP32 ops {bound[4]} -> {bound[2]:.4f}"
+              f" ms); evaluations {int(n_eval.sum())}, contributions {int(n_contrib.sum())}",
+              flush=True)
+        k4f = dict(err=max(err["image"], err["depth"], err["final_T"]), ms=ms, plain_ms=plain_ms,
+                   bound=bound)
+        manual_train = dataclasses.replace(
+            train_binning, kernel="manual",
+            max_pairs=int(trained["train_manual"][1].steps[-1][1]["max_pairs"]))
+        case = table_case(args, rig_cams(dev, *SERVE_SIZE, 5), manual_train,
+                          composite.composite_manual_fwd_cuda)
+        k4b, _ = measure_table_bwd("K4 bwd", case, composite.composite_manual_bwd_cuda,
+                                   composite.composite_manual_bwd_plain)
+        del case
+
+    with phase("measure_padded", 300):
+        case = padded_case(args, orbit, served["serve_padded"][1]["binning"])
+        kin, geo = case["kin"], case["geo"]
+        *ref, n_eval, n_contrib = padded.padded_fwd_plain(*kin, **geo, with_counts=True)
+        err = compare(case["out"], ref)
+        check_errors(err, f"K5 {SERVE_SIZE[0]}x{SERVE_SIZE[1]} (t=0 inputs, C=3)")
+        ms = cuda_ms(lambda: padded.padded_fwd_cuda(*kin, **geo), reps=20, warmup=3)
+        plain_ms = cuda_ms(lambda: padded.padded_fwd_plain(*kin, **geo), reps=2, warmup=1)
+        v, pp, rec = kin[0].shape
+        pairs = int((kin[2] - kin[1]).sum())
+        hw = SERVE_SIZE[0] * SERVE_SIZE[1]
+        bound = fwd_bound(3, v, hw, int(n_eval.sum()), int(n_contrib.sum()),
+                          4 * (pairs * rec + 2 * kin[1].numel()))
+        print(f"  K5 fwd V={v} Pp={pp} pairs={pairs}: {ms:.4f} ms/launch, plain {plain_ms:.2f}"
+              f" ms; bound {bound[0]:.4f} ms (bytes {bound[3]} -> {bound[1]:.4f} ms, FP32 ops"
+              f" {bound[4]} -> {bound[2]:.4f} ms); evaluations {int(n_eval.sum())},"
+              f" contributions {int(n_contrib.sum())}", flush=True)
+        k5f = dict(err=max(err["image"], err["depth"], err["final_T"]), ms=ms, plain_ms=plain_ms,
+                   bound=bound)
+        pb = trained["train_padded"][1]
+        case = padded_case(args, rig_cams(dev, *SERVE_SIZE, 5), dataclasses.replace(
+            padded_binning, max_pairs=int(pb.steps[-1][1]["max_pairs"])))
+        kin, geo, cot, (tfin, last) = case["kin"], case["geo"], case["cot"], case["fwd"]
+        run = lambda: padded.padded_bwd_cuda(*kin, tfin, last, *cot, **geo)  # noqa: E731
+        run_plain = lambda: padded.padded_bwd_plain(*kin, tfin, last, *cot, **geo)  # noqa: E731
+        rows, rows_ref = run(), run_plain()
+        check_rows("K5 bwd at the training shapes", {"rows": row_scaled_err(rows, rows_ref)})
+        k5b_err = float((rows - rows_ref).abs().max())
+        del rows_ref
+        b_ms = cuda_ms(run, reps=20, warmup=3)
+        b_plain_ms = cuda_ms(run_plain, reps=2, warmup=1)
+        *_, n_live = padded.padded_fwd_plain(*kin, **geo, with_counts=True)
+        evals, live = bwd_work(kin[1], last, geo, n_live)
+        v, pp, rec = kin[0].shape
+        c = rec - 7
+        pairs = int((kin[2] - kin[1]).sum())
+        b_bytes = 4 * (pairs * rec + 2 * kin[1].numel() + c + v * hw * (c + 4) + v * pp * rec)
+        b_ops = OPS_PER_EVAL * evals + ops_bwd_per_live(c) * live
+        b_tb, b_to = 1e3 * b_bytes / PEAK_BYTES_S, 1e3 * b_ops / PEAK_FP32_FLOPS
+        print(f"  K5 bwd V={v} Pp={pp} pairs={pairs}; evaluations {evals}, live {live}:"
+              f" {b_ms:.4f} ms/launch, plain {b_plain_ms:.2f} ms; bound {max(b_tb, b_to):.4f} ms"
+              f" (bytes {b_bytes} -> {b_tb:.4f} ms, FP32 ops {b_ops} -> {b_to:.4f} ms)",
+              flush=True)
+        k5b = dict(err=k5b_err, ms=b_ms, plain_ms=b_plain_ms, bound=(max(b_tb, b_to), b_tb, b_to))
+        del case, rows
+
+    for k, v in ptxas_summary(_build.build_log).items():
+        print(f"  ptxas {k}: {v}", flush=True)
+    launched = {path: counts for path, (counts, _) in {**served, **trained}.items()}
+    by_path = lambda name: {p: c[name] for p, c in launched.items() if c[name]}  # noqa: E731
+    kernels = [
+        kernel_entry("composite_fwd", "splatpu_torch/csrc/composite_fwd.cu",
+                     "splatpu/render/exact.py:856 (_fwd_kernel_grid)", by_path("composite_fwd"),
+                     **k1),
+        kernel_entry("composite_bwd", "splatpu_torch/csrc/composite_bwd.cu",
+                     "splatpu/render/exact.py:994 (_bwd_kernel_grid)", by_path("composite_bwd"),
+                     **k2),
+        kernel_entry("route_pairs", "splatpu_torch/csrc/route_pairs.cu",
+                     "splatpu/render/exact.py:1320 (_cumsum_pairs_pallas)", by_path("route_pairs"),
+                     **k3),
+        kernel_entry("composite_manual_fwd", "splatpu_torch/csrc/composite_manual_fwd.cu",
+                     "splatpu/render/exact.py:608 (_fwd_kernel)", by_path("composite_manual_fwd"),
+                     **k4f),
+        kernel_entry("composite_manual_bwd", "splatpu_torch/csrc/composite_manual_bwd.cu",
+                     "splatpu/render/exact.py:679 (_bwd_kernel)", by_path("composite_manual_bwd"),
+                     **k4b),
+        kernel_entry("padded_fwd", "splatpu_torch/csrc/padded_fwd.cu",
+                     "splatpu/render/pallas_composite.py:113 (_fwd_kernel)",
+                     by_path("padded_fwd"), **k5f),
+        kernel_entry("padded_bwd", "splatpu_torch/csrc/padded_bwd.cu",
+                     "splatpu/render/pallas_composite.py:200 (_bwd_kernel)",
+                     by_path("padded_bwd"), **k5b),
+    ]
+    for entry in kernels:
+        if not entry["launches"]:
+            fail(f"{entry['name']} launched on no path")
     print(f"total {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

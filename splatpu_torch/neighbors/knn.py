@@ -4,7 +4,11 @@
 Squared distances |a|^2 + |b|^2 - 2 a.b over chunks of query rows against
 all points, in float32 with TF32 off (a TF32 product keeps ~3 digits and
 reorders near neighbours), each point excluded from its own row by index
-(so duplicates still find their twin), then the k smallest.  The chunk is
+(so duplicates still find their twin), then the k smallest by a stable
+sort, so that among equal distances the lower index comes first, as JAX's
+``lax.top_k`` orders them (``torch.topk`` makes no such promise, and exact
+ties are common: a densification clone starts as a copy of its source,
+and grid-like scenes are full of equidistant points).  The chunk is
 sized so that one (chunk, N) distance block stays near 256 MB.  The JAX
 package routes inputs above 200,000 points to a native KD-tree; that route
 is not ported yet, and the brute force takes every size.
@@ -48,7 +52,7 @@ def knn_bruteforce(points: torch.Tensor, k: int, chunk: int | None = None):
             d2 = (q * q).sum(-1)[:, None] + sq_norm[None, :] - 2.0 * cross
             rows = all_ids[r0 : r0 + q.shape[0]]
             d2[torch.arange(q.shape[0], device=pts.device), rows] = float("inf")
-            neg, idx = torch.topk(-d2, k, dim=1)
-            idx_out.append(idx.to(torch.int32))
-            d2_out.append(torch.clamp(-neg, min=0.0))
+            d2_sorted, idx = torch.sort(d2, dim=1, stable=True)
+            idx_out.append(idx[:, :k].to(torch.int32))
+            d2_out.append(torch.clamp(d2_sorted[:, :k], min=0.0))
     return torch.cat(idx_out), torch.cat(d2_out)

@@ -4,14 +4,24 @@
 ``render(args, camera, bg, impl, config)`` renders every view of a (possibly
 batched) camera in one call.  ``impl``:
 
-- ``"cuda"``:  exact binning + the hand-written CUDA composite (CUDA tensors);
-- ``"plain"``: exact binning + the composite's plain PyTorch version;
+- ``"cuda"``:  exact binning + the hand-written CUDA composite (CUDA
+  tensors): K1/K2, or K4 under ``config.kernel="manual"`` (the JAX
+  package's ``impl="pallas"``);
+- ``"plain"``: exact binning + the same composite's plain PyTorch version;
+- ``"cuda_padded"``: the padded pair stream + K5 (the JAX package's
+  ``impl="pallas_padded"``), 16 px tiles only;
+- ``"plain_padded"``: the padded pair stream + K5's plain versions;
+- ``"stream"``: the padded pair stream + the pair-parallel PyTorch
+  compositor (``render/stream.py``), on any device, as the JAX package's
+  ``impl="stream"``;
 - ``"oracle"``: the naive per-pixel renderer (``render/oracle.py``), the
   port's ground truth for small scenes;
 - ``"auto"``:  ``"cuda"`` for CUDA tensors, ``"plain"`` for CPU tensors, as
   the JAX package picks its Pallas kernels on a TPU.
 
-Every impl is differentiable in the per-Gaussian inputs and ``bg``.
+With ``config=None`` the budget is ``default_config``'s, at 16 px tiles for
+the padded impls and 32 px otherwise, as in the JAX package.  Every impl is
+differentiable in the per-Gaussian inputs and ``bg``.
 """
 
 from __future__ import annotations
@@ -25,13 +35,18 @@ from splatpu_torch.core.types import Camera, RenderArgs
 from splatpu_torch.render.binning import DEFAULT_TILE, BinningConfig, tile_grid
 from splatpu_torch.render.exact import render_exact
 from splatpu_torch.render.oracle import render_oracle
+from splatpu_torch.render.padded import render_padded
+from splatpu_torch.render.stream import render_stream
 from splatpu_torch.render.types import RenderOutput
+
+IMPLS = ("cuda", "plain", "cuda_padded", "plain_padded", "stream", "oracle")
+PADDED_IMPLS = {"cuda_padded": "cuda", "plain_padded": "plain"}
 
 
 def resolve_impl(impl: str, device: torch.device) -> str:
     if impl == "auto":
         return "cuda" if device.type == "cuda" else "plain"
-    if impl not in ("cuda", "plain", "oracle"):
+    if impl not in IMPLS:
         raise ValueError(f"unknown renderer impl: {impl!r}")
     return impl
 
@@ -47,7 +62,12 @@ def render(
     if impl == "oracle":
         return render_oracle(args, camera, bg)
     if config is None:
-        config = default_config(args.n)
+        # The first-generation padded path is fixed at 16x16 tiles.
+        config = default_config(args.n, tile=16 if impl in PADDED_IMPLS else DEFAULT_TILE)
+    if impl in PADDED_IMPLS:
+        return render_padded(args, camera, bg, config, impl=PADDED_IMPLS[impl])
+    if impl == "stream":
+        return render_stream(args, camera, bg, config)
     return render_exact(args, camera, bg, config, impl=impl)
 
 

@@ -1,17 +1,26 @@
 """Tile composite, forward and backward: the CUDA kernels' wrappers and
 their plain versions.
 
-Replaces ``splatpu/render/exact.py::_fwd_kernel_grid`` (via ``_fwd_call_grid``,
-the TPU's forward composite).  The kernel is ``csrc/composite_fwd.cu``: one
-block per (tile, view), one thread per pixel walking the tile's sorted pairs
-front to back, records gathered from the per-Gaussian table by ``gid`` into
-shared memory, block exit once every pixel is done.  On the H100 it is bound
-by its FP32 arithmetic (~16 operations and one exp per evaluated
-(pixel, pair)), not by its bytes (one table row per pair per tile plus the
-outputs); the source note in the ``.cu`` file says what the design does
-about that.
+Two pairs of kernels gather their records from the per-Gaussian table:
 
-Inputs, shared by both versions (V views, N Gaussians, P pair slots, T tiles):
+- K1 and K2 replace ``splatpu/render/exact.py::_fwd_kernel_grid`` and
+  ``_bwd_kernel_grid`` (via ``_fwd_call_grid`` / ``_bwd_call_grid``, the
+  TPU's default ``kernel="grid"``): ``csrc/composite_fwd.cu`` and
+  ``csrc/composite_bwd.cu``, 1..5 colour channels, as the grid kernel;
+- K4 replaces ``exact.py::_fwd_kernel`` and ``_bwd_kernel`` (via
+  ``_fwd_call`` / ``_bwd_call``, ``kernel="manual"``):
+  ``csrc/composite_manual_fwd.cu`` and ``csrc/composite_manual_bwd.cu``,
+  1..9 channels (``NREC - R_COLOR0`` of the TPU kernels) and any pair
+  budget, with the channel count a template parameter.
+
+The forward kernels: one block per (tile, view), one thread per pixel
+walking the tile's sorted pairs front to back, records gathered by ``gid``
+into shared memory, block exit once every pixel is done.  On the H100 they
+are bound by their FP32 arithmetic (~16 operations and one exp per
+evaluated (pixel, pair)), not by their bytes; the ``.cu`` files say what
+the design does about that.
+
+Inputs, shared by all versions (V views, N Gaussians, P pair slots, T tiles):
 
 - ``table``  (V, N, 7 + C) float32 rows [mx, my, ca, cb, cc, opacity, depth,
   colour_0..colour_{C-1}] (``pack_table``);
@@ -23,15 +32,17 @@ Outputs: image (V, C, H, W), depth (V, H, W), final transmittance (V, H, W)
 and the int32 position of the last contributing pair (V, H, W), -1 where
 none contributed.
 
-The backward composite replaces ``splatpu/render/exact.py::_bwd_kernel_grid``
-(via ``_bwd_call_grid``).  Its kernel is ``csrc/composite_bwd.cu``: one block
-per (tile, view), one thread per pixel walking back to front from the
-pixel's forward ``last``, per-pair sums over the tile's pixels by warp
-shuffles and a fixed-order sum across warps, no atomics.  It takes the
-forward inputs plus the forward's final T and ``last`` and the cotangents
-``g_img`` (V, C, H, W), ``g_depth`` and ``g_tf`` (V, H, W), and returns the
-per-pair gradient rows (V, P, 7 + C) in the table's row order; pairs that
-no pixel composited keep a zero row.
+The backward kernels: one block per (tile, view), one thread per pixel
+walking back to front from the pixel's forward ``last``, per-pair sums over
+the tile's pixels by warp shuffles and a fixed-order sum across warps, no
+atomics.  They take the forward inputs plus the forward's final T and
+``last`` and the cotangents ``g_img`` (V, C, H, W), ``g_depth`` and
+``g_tf`` (V, H, W), and return the per-pair gradient rows (V, P, 7 + C) in
+the table's row order; pairs that no pixel composited keep a zero row.
+
+The plain versions (``composite_*_plain``) are the same functions in plain
+PyTorch, vectorised over pairs (``fwd_walk`` / ``bwd_walk``, which the
+padded composite of ``render/padded.py`` shares).
 """
 
 from __future__ import annotations
@@ -44,10 +55,13 @@ from splatpu_torch import _build
 from splatpu_torch.core.projection import ALPHA_MAX, ALPHA_MIN, TRANSMITTANCE_EPS
 
 REC_GEOM = 7
-MAX_C = 5
+MAX_C = 5          # K1/K2, as the TPU grid kernel's packed output
+MAX_C_MANUAL = 9   # K4: the TPU kernels' NREC - R_COLOR0
 
-LAUNCHES = 0      # kernel launches made by composite_fwd_cuda
-BWD_LAUNCHES = 0  # kernel launches made by composite_bwd_cuda
+LAUNCHES = 0             # kernel launches made by composite_fwd_cuda (K1)
+BWD_LAUNCHES = 0         # by composite_bwd_cuda (K2)
+MANUAL_LAUNCHES = 0      # by composite_manual_fwd_cuda (K4 forward)
+MANUAL_BWD_LAUNCHES = 0  # by composite_manual_bwd_cuda (K4 backward)
 
 
 def pack_table(mean2d, conic, opacity, depth, colors) -> torch.Tensor:
@@ -57,26 +71,27 @@ def pack_table(mean2d, conic, opacity, depth, colors) -> torch.Tensor:
     ).contiguous()
 
 
-def _check_inputs(table, gid, start, end, bg, tiles_x, tiles_y, tile):
+def check_types(**named) -> None:
+    for name, (x, dt) in named.items():
+        if x.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {x.dtype}")
+
+
+def _check_inputs(table, gid, start, end, bg, tiles_x, tiles_y, tile, max_c=MAX_C):
     if table.dim() != 3 or gid.dim() != 2 or start.dim() != 2 or end.dim() != 2:
         raise ValueError("expected table (V,N,R), gid (V,P), start/end (V,T)")
     v, _, rec = table.shape
     c = rec - REC_GEOM
-    if not 1 <= c <= MAX_C:
-        raise ValueError(f"the composite takes 1..{MAX_C} channels, got {c}")
+    if not 1 <= c <= max_c:
+        raise ValueError(f"the composite takes 1..{max_c} channels, got {c}")
     if gid.shape[0] != v or start.shape != (v, tiles_x * tiles_y) or end.shape != start.shape:
         raise ValueError("gid/start/end do not match the table's views and tile grid")
     if bg.shape != (c,):
         raise ValueError(f"bg must have shape ({c},), got {tuple(bg.shape)}")
     if tile * tile > 1024:
         raise ValueError(f"tile {tile} needs more than 1024 threads per block")
-    for name, x, dt in (
-        ("table", table, torch.float32), ("gid", gid, torch.int32),
-        ("start", start, torch.int32), ("end", end, torch.int32),
-        ("bg", bg, torch.float32),
-    ):
-        if x.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {x.dtype}")
+    check_types(table=(table, torch.float32), gid=(gid, torch.int32),
+                start=(start, torch.int32), end=(end, torch.int32), bg=(bg, torch.float32))
     return v, c
 
 
@@ -86,17 +101,17 @@ def _lib() -> ctypes.CDLL:
     # Python int as a 32-bit int and cut the pointer.
     for fn, n_ptr, n_int in (
         (lib.splatpu_composite_fwd, 9, 9), (lib.splatpu_composite_bwd, 11, 9),
+        (lib.splatpu_composite_manual_fwd, 9, 9), (lib.splatpu_composite_manual_bwd, 11, 9),
     ):
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def composite_fwd_cuda(table, gid, start, end, bg, *, tiles_x, tiles_y, tile, width, height):
-    """Launch the CUDA kernel; every tensor must be a contiguous CUDA tensor."""
-    global LAUNCHES
-    _build.require_cuda("composite_fwd_cuda", (table, gid, start, end, bg))
-    v, c = _check_inputs(table, gid, start, end, bg, tiles_x, tiles_y, tile)
+def _fwd_cuda(entry, max_c, table, gid, start, end, bg, tiles_x, tiles_y, tile, width, height):
+    """Check the inputs, allocate the outputs and call one forward launcher."""
+    _build.require_cuda(entry, (table, gid, start, end, bg))
+    v, c = _check_inputs(table, gid, start, end, bg, tiles_x, tiles_y, tile, max_c)
     dev = table.device
     image = torch.empty((v, c, height, width), dtype=torch.float32, device=dev)
     depth = torch.empty((v, height, width), dtype=torch.float32, device=dev)
@@ -105,15 +120,33 @@ def composite_fwd_cuda(table, gid, start, end, bg, *, tiles_x, tiles_y, tile, wi
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.splatpu_composite_fwd(
+        code = getattr(lib, f"splatpu_{entry}")(
             table.data_ptr(), gid.data_ptr(), start.data_ptr(), end.data_ptr(),
             bg.data_ptr(), image.data_ptr(), depth.data_ptr(), tfin.data_ptr(),
             last.data_ptr(), v, table.shape[1], gid.shape[1], c, tiles_x,
             tiles_y, tile, width, height, stream,
         )
-    _build.check_status(lib, code, "composite_fwd launch")
-    LAUNCHES += 1
+    _build.check_status(lib, code, f"{entry} launch")
     return image, depth, tfin, last
+
+
+def composite_fwd_cuda(table, gid, start, end, bg, *, tiles_x, tiles_y, tile, width, height):
+    """Launch K1; every tensor must be a contiguous CUDA tensor."""
+    global LAUNCHES
+    out = _fwd_cuda("composite_fwd", MAX_C, table, gid, start, end, bg,
+                    tiles_x, tiles_y, tile, width, height)
+    LAUNCHES += 1
+    return out
+
+
+def composite_manual_fwd_cuda(table, gid, start, end, bg, *, tiles_x, tiles_y, tile, width,
+                              height):
+    """Launch K4's forward; every tensor must be a contiguous CUDA tensor."""
+    global MANUAL_LAUNCHES
+    out = _fwd_cuda("composite_manual_fwd", MAX_C_MANUAL, table, gid, start, end, bg,
+                    tiles_x, tiles_y, tile, width, height)
+    MANUAL_LAUNCHES += 1
+    return out
 
 
 def untile(x: torch.Tensor, tiles_x: int, tiles_y: int, tile: int, width: int, height: int):
@@ -123,43 +156,67 @@ def untile(x: torch.Tensor, tiles_x: int, tiles_y: int, tile: int, width: int, h
     return x.reshape(v, k, tiles_y * tile, tiles_x * tile)[:, :, :height, :width]
 
 
-def composite_fwd_plain(
-    table, gid, start, end, bg, *, tiles_x, tiles_y, tile, width, height,
-    chunk: int = 256, with_counts: bool = False,
-):
-    """The same function in plain PyTorch, vectorised over pairs.
+def to_tiles(x: torch.Tensor, tiles_x: int, tiles_y: int, tile: int, fill=0):
+    """(V, K, H, W) image layout -> (V * T, tile*tile, K) tile-major, the
+    pixels beyond the image set to ``fill`` (the inverse of ``untile``)."""
+    v, k, h, w = x.shape
+    x = torch.nn.functional.pad(x, (0, tiles_x * tile - w, 0, tiles_y * tile - h), value=fill)
+    x = x.reshape(v, k, tiles_y, tile, tiles_x, tile).permute(0, 2, 4, 3, 5, 1)
+    return x.reshape(v * tiles_y * tiles_x, tile * tile, k)
 
-    Tiles are processed in batches; each batch walks its segments in chunks
-    of ``chunk`` pairs, carrying T and a done flag per pixel.  Within a chunk
-    the exclusive transmittance is a cumprod of (1 - alpha), and the first
-    pair that would drop T below 1e-4 cuts itself and the rest of the chunk
-    (first-fail masking) — the serial walk's semantics, with the products
-    taken in another order.  Transmittance and the sums are carried in
-    float64, so that over the hundreds of pairs of a 720p tile this
-    version's rounding stays well below the kernel's float32 rounding it is
-    compared with; the outputs are float32.
+
+def _tile_frames(v, nt, tiles_x, tile, dev):
+    """Per (view, tile) row: its view and tile origin; per pixel of a tile:
+    its tile-local coordinates."""
+    vt = torch.arange(v * nt, device=dev)
+    t_of = vt % nt
+    pix = torch.arange(tile * tile, device=dev)
+    return (vt // nt, ((t_of % tiles_x) * tile).float(), ((t_of // tiles_x) * tile).float(),
+            (pix % tile).float(), (pix // tile).float())
+
+
+def _chunk_geometry(rec, ox, oy, lx, ly, padded):
+    """dx, dy (B, NPIX, G) of the pixels against a chunk's records.
+
+    The grid and manual kernels work in tile-local coordinates (means minus
+    the tile origin, pixel in tile); the padded kernel (K5) in absolute
+    pixel coordinates, as its TPU kernel does.  Each form is the kernels'
+    own rounding, op by op."""
+    if padded:
+        px = (ox[:, None] + lx[None, :])[:, :, None]
+        py = (oy[:, None] + ly[None, :])[:, :, None]
+        return px - rec[..., 0][:, None, :], py - rec[..., 1][:, None, :]
+    mx = (rec[..., 0] - ox[:, None])[:, None, :]
+    my = (rec[..., 1] - oy[:, None])[:, None, :]
+    return lx[None, :, None] - mx, ly[None, :, None] - my
+
+
+def fwd_walk(fetch, start, end, bg, *, v, c, tiles_x, tiles_y, tile, width, height,
+             padded=False, chunk=256, with_counts=False):
+    """The forward composite in plain PyTorch, vectorised over pairs.
+
+    ``fetch(view (B, 1), pos (B, G))`` returns the records (B, G, 7 + C) at
+    those pair positions.  Tiles are processed in batches; each batch walks
+    its segments in chunks of ``chunk`` pairs, carrying T and a done flag
+    per pixel.  Within a chunk the exclusive transmittance is a cumprod of
+    (1 - alpha), and the first pair that would drop T below 1e-4 cuts
+    itself and the rest of the chunk (first-fail masking) — the serial
+    walk's semantics, with the products taken in another order.
+    Transmittance and the sums are carried in float64, so that over the
+    hundreds of pairs of a 720p tile this version's rounding stays well
+    below the kernels' float32 rounding it is compared with; the outputs
+    are float32.
 
     ``with_counts`` also returns, per pixel, the (pixel, pair) evaluations the
     serial walk makes (up to and including the cutting pair) and the pairs
-    that contribute: the work this input needs, for the kernel's bound.
+    that contribute: the work this input needs, for the kernels' bounds.
     """
-    v, c = _check_inputs(table, gid, start, end, bg, tiles_x, tiles_y, tile)
-    dev = table.device
-    n_rec = table.shape[1]
-    p = gid.shape[1]
+    dev = bg.device
     nt = tiles_x * tiles_y
     npix = tile * tile
-    table_flat = table.reshape(v * n_rec, -1)
-    gid_flat = gid.reshape(-1).long()
     starts = start.reshape(-1).long()
     ends = end.reshape(-1).long()
-    view_of = torch.arange(v * nt, device=dev) // nt
-    t_of = torch.arange(v * nt, device=dev) % nt
-    ox = ((t_of % tiles_x) * tile).float()
-    oy = ((t_of // tiles_x) * tile).float()
-    pix = torch.arange(npix, device=dev)
-    lx = (pix % tile).float()
-    ly = (pix // tile).float()
+    view_of, ox, oy, lx, ly = _tile_frames(v, nt, tiles_x, tile, dev)
 
     f64 = torch.float64
     acc_all = torch.zeros((v * nt, npix, c + 1), dtype=f64, device=dev)
@@ -187,14 +244,9 @@ def composite_fwd_plain(
         for k0 in range(0, seg_len, g):
             pos = starts[sl, None] + k0 + lanes[None, :]           # (B, G)
             live = pos < ends[sl, None]
-            pos_c = torch.where(live, pos, torch.zeros_like(pos))
-            gids = gid_flat[view_of[sl, None] * p + pos_c]
-            rec = table_flat[view_of[sl, None] * n_rec + gids]       # (B, G, R)
-            mx = (rec[..., 0] - ox[sl, None])[:, None, :]
-            my = (rec[..., 1] - oy[sl, None])[:, None, :]
+            rec = fetch(view_of[sl, None], torch.where(live, pos, torch.zeros_like(pos)))
+            dx, dy = _chunk_geometry(rec, ox[sl], oy[sl], lx, ly, padded)  # (B, NPIX, G)
             ca, cb, cc, op = (rec[..., i][:, None, :] for i in (2, 3, 4, 5))
-            dx = lx[None, :, None] - mx                               # (B, NPIX, G)
-            dy = ly[None, :, None] - my
             power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
             alpha = torch.clamp(op * torch.exp(power), max=ALPHA_MAX)
             keep = (power <= 0.0) & (alpha >= ALPHA_MIN) & live[:, None, :]
@@ -247,7 +299,42 @@ def composite_fwd_plain(
     return out + (counts[:, 0].contiguous(), counts[:, 1].contiguous())
 
 
-def _check_bwd_inputs(table, tfinal, last, g_img, g_depth, g_tf, v, c, width, height):
+def table_fetch(table, gid):
+    """``fwd_walk``'s record fetch for the table kernels: gather each pair's
+    Gaussian row by ``gid``."""
+    v, n_rec, rec_n = table.shape
+    p = gid.shape[1]
+    table_flat = table.reshape(v * n_rec, rec_n)
+    gid_flat = gid.reshape(-1).long()
+    return lambda view, pos: table_flat[view * n_rec + gid_flat[view * p + pos]]
+
+
+def _fwd_plain(max_c, table, gid, start, end, bg, geo, chunk, with_counts):
+    v, c = _check_inputs(table, gid, start, end, bg, geo["tiles_x"], geo["tiles_y"],
+                         geo["tile"], max_c)
+    return fwd_walk(table_fetch(table, gid), start, end, bg, v=v, c=c, **geo, chunk=chunk,
+                    with_counts=with_counts)
+
+
+def composite_fwd_plain(
+    table, gid, start, end, bg, *, tiles_x, tiles_y, tile, width, height,
+    chunk: int = 256, with_counts: bool = False,
+):
+    """K1's function in plain PyTorch (``fwd_walk``), 1..5 channels."""
+    geo = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile=tile, width=width, height=height)
+    return _fwd_plain(MAX_C, table, gid, start, end, bg, geo, chunk, with_counts)
+
+
+def composite_manual_fwd_plain(
+    table, gid, start, end, bg, *, tiles_x, tiles_y, tile, width, height,
+    chunk: int = 256, with_counts: bool = False,
+):
+    """K4's forward in plain PyTorch: the same walk, 1..9 channels."""
+    geo = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile=tile, width=width, height=height)
+    return _fwd_plain(MAX_C_MANUAL, table, gid, start, end, bg, geo, chunk, with_counts)
+
+
+def check_bwd_inputs(tfinal, last, g_img, g_depth, g_tf, v, c, width, height):
     pix = (v, height, width)
     for name, x, shape, dt in (
         ("tfinal", tfinal, pix, torch.float32), ("last", last, pix, torch.int32),
@@ -260,17 +347,12 @@ def _check_bwd_inputs(table, tfinal, last, g_img, g_depth, g_tf, v, c, width, he
             raise TypeError(f"{name} must be {dt}, got {x.dtype}")
 
 
-def composite_bwd_cuda(
-    table, gid, start, end, bg, tfinal, last, g_img, g_depth, g_tf,
-    *, tiles_x, tiles_y, tile, width, height,
-):
-    """Launch the backward kernel; every tensor must be a contiguous CUDA
-    tensor.  Returns the per-pair gradient rows (V, P, 7 + C)."""
-    global BWD_LAUNCHES
+def _bwd_cuda(entry, max_c, table, gid, start, end, bg, tfinal, last, g_img, g_depth, g_tf,
+              tiles_x, tiles_y, tile, width, height):
     tensors = (table, gid, start, end, bg, tfinal, last, g_img, g_depth, g_tf)
-    _build.require_cuda("composite_bwd_cuda", tensors)
-    v, c = _check_inputs(table, gid, start, end, bg, tiles_x, tiles_y, tile)
-    _check_bwd_inputs(table, tfinal, last, g_img, g_depth, g_tf, v, c, width, height)
+    _build.require_cuda(entry, tensors)
+    v, c = _check_inputs(table, gid, start, end, bg, tiles_x, tiles_y, tile, max_c)
+    check_bwd_inputs(tfinal, last, g_img, g_depth, g_tf, v, c, width, height)
     if (tile * tile) % 32:
         raise ValueError(f"the backward kernel needs tile*tile a multiple of 32, got {tile}")
     p = gid.shape[1]
@@ -278,59 +360,67 @@ def composite_bwd_cuda(
     lib = _lib()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
-        code = lib.splatpu_composite_bwd(
+        code = getattr(lib, f"splatpu_{entry}")(
             *(x.data_ptr() for x in tensors), d_rows.data_ptr(), v, table.shape[1], p, c,
             tiles_x, tiles_y, tile, width, height, stream,
         )
-    _build.check_status(lib, code, "composite_bwd launch")
-    BWD_LAUNCHES += 1
+    _build.check_status(lib, code, f"{entry} launch")
     return d_rows
 
 
-def to_tiles(x: torch.Tensor, tiles_x: int, tiles_y: int, tile: int, fill=0):
-    """(V, K, H, W) image layout -> (V * T, tile*tile, K) tile-major, the
-    pixels beyond the image set to ``fill`` (the inverse of ``untile``)."""
-    v, k, h, w = x.shape
-    x = torch.nn.functional.pad(x, (0, tiles_x * tile - w, 0, tiles_y * tile - h), value=fill)
-    x = x.reshape(v, k, tiles_y, tile, tiles_x, tile).permute(0, 2, 4, 3, 5, 1)
-    return x.reshape(v * tiles_y * tiles_x, tile * tile, k)
-
-
-def composite_bwd_plain(
+def composite_bwd_cuda(
     table, gid, start, end, bg, tfinal, last, g_img, g_depth, g_tf,
-    *, tiles_x, tiles_y, tile, width, height, chunk: int = 256,
+    *, tiles_x, tiles_y, tile, width, height,
 ):
-    """The backward kernel's function in plain PyTorch, vectorised over pairs.
+    """Launch K2; every tensor must be a contiguous CUDA tensor.  Returns
+    the per-pair gradient rows (V, P, 7 + C)."""
+    global BWD_LAUNCHES
+    rows = _bwd_cuda("composite_bwd", MAX_C, table, gid, start, end, bg, tfinal, last, g_img,
+                     g_depth, g_tf, tiles_x, tiles_y, tile, width, height)
+    BWD_LAUNCHES += 1
+    return rows
+
+
+def composite_manual_bwd_cuda(
+    table, gid, start, end, bg, tfinal, last, g_img, g_depth, g_tf,
+    *, tiles_x, tiles_y, tile, width, height,
+):
+    """Launch K4's backward; every tensor must be a contiguous CUDA tensor.
+    Returns the per-pair gradient rows (V, P, 7 + C)."""
+    global MANUAL_BWD_LAUNCHES
+    rows = _bwd_cuda("composite_manual_bwd", MAX_C_MANUAL, table, gid, start, end, bg, tfinal,
+                     last, g_img, g_depth, g_tf, tiles_x, tiles_y, tile, width, height)
+    MANUAL_BWD_LAUNCHES += 1
+    return rows
+
+
+def bwd_walk(fetch, start, end, bg, tfinal, last, g_img, g_depth, g_tf, *, v, c, p,
+             tiles_x, tiles_y, tile, width, height, padded=False, chunk=256):
+    """The backward composite in plain PyTorch, vectorised over pairs;
+    ``fetch`` as in ``fwd_walk``, ``p`` the pair positions of a view.
 
     Tiles are processed in batches; each batch walks its segments back to
     front in chunks of ``chunk`` pairs, from the tile's largest ``last``
     down, carrying per pixel the transmittance T (divided by 1 - alpha per
-    live pair, as the kernel does) and the suffix sum.  Within a chunk the
+    live pair, as the kernels do) and the suffix sum.  Within a chunk the
     suffix products and sums are a cumprod / cumsum along the reversed
     lanes.  Alpha is computed in float32 as the forward does; T, the suffix
     and the row sums are carried in float64, so this version's rounding
-    stays well below the kernel's float32 rounding it is compared with.
+    stays well below the kernels' float32 rounding it is compared with.
+
+    The opacity row is sum(dpower) / opacity for the table kernels (the
+    TPU grid and manual kernels' form) and sum(exp(power) * dalpha) for the
+    padded kernel (``padded``, its TPU kernel's form); both are zero where
+    the raw alpha is clamped.
     """
-    v, c = _check_inputs(table, gid, start, end, bg, tiles_x, tiles_y, tile)
-    _check_bwd_inputs(table, tfinal, last, g_img, g_depth, g_tf, v, c, width, height)
-    dev = table.device
+    dev = bg.device
     rec_n = REC_GEOM + c
-    n_rec = table.shape[1]
-    p = gid.shape[1]
     nt = tiles_x * tiles_y
     npix = tile * tile
     f64 = torch.float64
-    table_flat = table.reshape(v * n_rec, rec_n)
-    gid_flat = gid.reshape(-1).long()
     starts = start.reshape(-1).long()
     ends = end.reshape(-1).long()
-    view_of = torch.arange(v * nt, device=dev) // nt
-    t_of = torch.arange(v * nt, device=dev) % nt
-    ox = ((t_of % tiles_x) * tile).float()
-    oy = ((t_of // tiles_x) * tile).float()
-    pix = torch.arange(npix, device=dev)
-    lx = (pix % tile).float()
-    ly = (pix // tile).float()
+    view_of, ox, oy, lx, ly = _tile_frames(v, nt, tiles_x, tile, dev)
 
     geo = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile=tile)
     gimg_t = to_tiles(g_img, **geo).double()                         # (VT, NPIX, C)
@@ -358,15 +448,12 @@ def composite_bwd_plain(
             pos = top[sl, None] - k0 - lanes[None, :]                 # (B, G) descending
             live_p = pos >= starts[sl, None]
             pos_c = torch.where(live_p, pos, torch.zeros_like(pos))
-            gids = gid_flat[view_of[sl, None] * p + pos_c]
-            rec = table_flat[view_of[sl, None] * n_rec + gids]       # (B, G, R)
-            mx = (rec[..., 0] - ox[sl, None])[:, None, :]
-            my = (rec[..., 1] - oy[sl, None])[:, None, :]
+            rec = fetch(view_of[sl, None], pos_c)                     # (B, G, R)
+            dx, dy = _chunk_geometry(rec, ox[sl], oy[sl], lx, ly, padded)  # (B, NPIX, G)
             ca, cb, cc, op = (rec[..., i][:, None, :] for i in (2, 3, 4, 5))
-            dx = lx[None, :, None] - mx                               # (B, NPIX, G)
-            dy = ly[None, :, None] - my
             power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-            raw = op * torch.exp(power)
+            e_power = torch.exp(power)
+            raw = op * e_power
             alpha = torch.clamp(raw, max=ALPHA_MAX)
             live = (
                 ~(power > 0.0) & (alpha >= ALPHA_MIN) & live_p[:, None, :]
@@ -382,19 +469,25 @@ def composite_bwd_plain(
             wchat = w * chat
             suffix = s_car[..., None] + torch.cumsum(wchat, dim=2) - wchat
             dalpha = torch.where(live, t_excl * chat - suffix / one_m, torch.zeros_like(w))
-            dpower = torch.where(raw < ALPHA_MAX, alpha * dalpha, torch.zeros_like(w))
+            unclamped = raw < ALPHA_MAX
+            dpower = torch.where(unclamped, alpha * dalpha, torch.zeros_like(w))
             dx, dy = dx.double(), dy.double()
             ca, cb, cc, op = ca.double(), cb.double(), cc.double(), op.double()
+            if padded:
+                op_row = torch.where(unclamped, e_power.double() * dalpha,
+                                     torch.zeros_like(w)).sum(1)
+            else:
+                op_row = torch.where(
+                    op[:, 0] > 0.0, dpower.sum(1) / op[:, 0].clamp(min=1e-30),
+                    torch.zeros_like(op[:, 0]),
+                )
             rows = [
                 ((ca * dx + cb * dy) * dpower).sum(1),
                 ((cc * dy + cb * dx) * dpower).sum(1),
                 (-0.5 * dx * dx * dpower).sum(1),
                 (-dx * dy * dpower).sum(1),
                 (-0.5 * dy * dy * dpower).sum(1),
-                torch.where(
-                    op[:, 0] > 0.0, dpower.sum(1) / op[:, 0].clamp(min=1e-30),
-                    torch.zeros_like(op[:, 0]),
-                ),
+                op_row,
                 (w * gdep[..., None]).sum(1),
             ] + [(w * gimg[..., ch : ch + 1]).sum(1) for ch in range(c)]
             rows = torch.stack(rows, dim=-1)                          # (B, G, R)
@@ -403,3 +496,32 @@ def composite_bwd_plain(
             t_car = t_excl[..., -1]
             s_car = s_car + wchat.sum(2)
     return out.float().reshape(v, p, rec_n)
+
+
+def _bwd_plain(max_c, table, gid, start, end, bg, tfinal, last, g_img, g_depth, g_tf, geo,
+               chunk):
+    v, c = _check_inputs(table, gid, start, end, bg, geo["tiles_x"], geo["tiles_y"],
+                         geo["tile"], max_c)
+    check_bwd_inputs(tfinal, last, g_img, g_depth, g_tf, v, c, geo["width"], geo["height"])
+    return bwd_walk(table_fetch(table, gid), start, end, bg, tfinal, last, g_img, g_depth,
+                    g_tf, v=v, c=c, p=gid.shape[1], **geo, chunk=chunk)
+
+
+def composite_bwd_plain(
+    table, gid, start, end, bg, tfinal, last, g_img, g_depth, g_tf,
+    *, tiles_x, tiles_y, tile, width, height, chunk: int = 256,
+):
+    """K2's function in plain PyTorch (``bwd_walk``), 1..5 channels."""
+    geo = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile=tile, width=width, height=height)
+    return _bwd_plain(MAX_C, table, gid, start, end, bg, tfinal, last, g_img, g_depth, g_tf,
+                      geo, chunk)
+
+
+def composite_manual_bwd_plain(
+    table, gid, start, end, bg, tfinal, last, g_img, g_depth, g_tf,
+    *, tiles_x, tiles_y, tile, width, height, chunk: int = 256,
+):
+    """K4's backward in plain PyTorch: the same walk, 1..9 channels."""
+    geo = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile=tile, width=width, height=height)
+    return _bwd_plain(MAX_C_MANUAL, table, gid, start, end, bg, tfinal, last, g_img, g_depth,
+                      g_tf, geo, chunk)

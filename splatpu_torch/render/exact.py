@@ -15,12 +15,16 @@ above (920 tiles leave 22 depth bits), and the 0xFFFFFFFF sentinel would
 otherwise wrap negative and sort first.
 
 The render.  ``CompositeTable`` is the port of the ``_composite_table``
-custom VJP: its forward is the forward composite (K1), its backward the
-backward composite (K2) -> ``pos_of_slot_of`` -> the routing kernel, giving
-d(table) (V, N, 7 + C) and d(bg).  Binning computes integers only and runs
-without autograd; the per-Gaussian table is packed from ``preprocess``'s
-outputs by differentiable ops, so gradients reach means, rotations, scales,
-opacities and colours through preprocess by ordinary autograd.
+custom VJP: its forward is the forward composite, its backward the
+backward composite -> ``pos_of_slot_of`` -> the routing kernel, giving
+d(table) (V, N, 7 + C) and d(bg).  ``config.kernel`` picks the composite
+as the JAX package's does: ``"grid"`` runs K1/K2 (at most 5 colour
+channels and 2^24 pairs, the JAX grid kernel's limits, with its error
+messages), ``"manual"`` runs K4 (up to 9 channels, any budget).  Binning
+computes integers only and runs without autograd; the per-Gaussian table
+is packed from ``preprocess``'s outputs by differentiable ops, so
+gradients reach means, rotations, scales, opacities and colours through
+preprocess by ordinary autograd.
 """
 
 from __future__ import annotations
@@ -31,18 +35,29 @@ import torch
 
 from splatpu_torch.core.projection import Splats2D, preprocess, tile_rect
 from splatpu_torch.core.types import Camera, RenderArgs
-from splatpu_torch.render.binning import BinningConfig, _depth_bits_for, tile_grid
+from splatpu_torch.render.binning import (
+    KERNEL_CHOICES,
+    SENTINEL,
+    BinningConfig,
+    _depth_bits_for,
+    quantize_depth,
+    tile_grid,
+)
 from splatpu_torch.render.composite import (
+    MAX_C,
+    MAX_C_MANUAL,
     composite_bwd_cuda,
     composite_bwd_plain,
     composite_fwd_cuda,
     composite_fwd_plain,
+    composite_manual_bwd_cuda,
+    composite_manual_bwd_plain,
+    composite_manual_fwd_cuda,
+    composite_manual_fwd_plain,
     pack_table,
 )
 from splatpu_torch.render.route import pos_of_slot_of, route_pairs_cuda, route_pairs_plain
 from splatpu_torch.render.types import RenderOutput
-
-SENTINEL = 0xFFFFFFFF
 
 
 @dataclasses.dataclass
@@ -176,15 +191,7 @@ def _bin(splats: Splats2D, opacities, width, height, config: BinningConfig) -> E
     total_pairs = count.sum().to(torch.int32)
     offsets = torch.cumsum(count.to(i64), 0) - count.to(i64)
 
-    d = splats.depth
-    dmin = torch.where(vis, d, torch.full_like(d, 1e10)).min() if n else d.new_tensor(1e10)
-    dmax = torch.where(vis, d, torch.full_like(d, -1e10)).max() if n else d.new_tensor(-1e10)
-    limit = (1 << depth_bits) - 1
-    dscale = torch.tensor(float(limit), device=dev) / torch.clamp(dmax - dmin, min=1e-9)
-    # Clip at 0, cast, then clamp in the integer domain (the product can
-    # round up to 2^depth_bits); the float clamp above the cast only guards
-    # rows that never emit.
-    dq = torch.clamp(torch.clamp((d - dmin) * dscale, 0.0, 2.0**32).to(i64), max=limit)
+    dq = quantize_depth(splats.depth, vis, depth_bits)
 
     def emit(sel, g_rows, tile_id, keep):
         keep_i = keep.to(i64)
@@ -268,11 +275,33 @@ def composite_inputs(args: RenderArgs, camera: Camera, config: BinningConfig):
     return streams, inputs
 
 
-# impl -> (forward composite, backward composite, routing)
+# (impl, config.kernel) -> (forward composite, backward composite, routing)
 KERNELS = {
-    "cuda": (composite_fwd_cuda, composite_bwd_cuda, route_pairs_cuda),
-    "plain": (composite_fwd_plain, composite_bwd_plain, route_pairs_plain),
+    ("cuda", "grid"): (composite_fwd_cuda, composite_bwd_cuda, route_pairs_cuda),
+    ("cuda", "manual"): (composite_manual_fwd_cuda, composite_manual_bwd_cuda, route_pairs_cuda),
+    ("plain", "grid"): (composite_fwd_plain, composite_bwd_plain, route_pairs_plain),
+    ("plain", "manual"): (
+        composite_manual_fwd_plain, composite_manual_bwd_plain, route_pairs_plain),
 }
+
+
+def check_kernel_limits(config: BinningConfig, c: int) -> None:
+    """The JAX package's guards on the exact path's composite
+    (``splatpu/render/exact.py:1491, 1518-1533``), with its messages."""
+    if config.kernel not in KERNEL_CHOICES:
+        raise ValueError(f"unknown composite kernel {config.kernel!r}; expected {KERNEL_CHOICES}")
+    if config.kernel == "grid" and c > MAX_C:
+        raise ValueError(
+            f"the grid kernel's packed output supports at most {MAX_C} color"
+            f" channels (got {c}); use kernel='manual' for more"
+        )
+    if config.kernel == "grid" and config.max_pairs > 1 << 24:
+        raise ValueError(
+            "kernel='grid' supports max_pairs <= 2^24 (f32-exact pair"
+            f" positions); got {config.max_pairs}. Use kernel='manual'."
+        )
+    if c > MAX_C_MANUAL:
+        raise ValueError(f"at most {MAX_C_MANUAL} color channels supported")
 
 
 class CompositeTable(torch.autograd.Function):
@@ -283,6 +312,7 @@ class CompositeTable(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, bg, gid, start, end, offsets, counts, lane, geometry, impl):
+        """``impl`` is a key of ``KERNELS``."""
         fwd = KERNELS[impl][0]
         image, depth, tfin, last = fwd(table, gid, start, end, bg, **geometry)
         ctx.save_for_backward(table, bg, gid, start, end, offsets, counts, lane, tfin, last)
@@ -309,22 +339,24 @@ def render_exact(
     impl: str = "cuda",
 ) -> RenderOutput:
     """Bin every view of ``camera`` and composite all of them in one call:
-    the CUDA kernels (``impl="cuda"``) or their plain versions (``"plain"``).
-    Differentiable in every per-Gaussian input of ``args`` and in ``bg``."""
+    the CUDA kernels (``impl="cuda"``) or their plain versions (``"plain"``),
+    K1/K2 or K4 as ``config.kernel`` says.  Differentiable in every
+    per-Gaussian input of ``args`` and in ``bg``."""
     c = args.colors.shape[1]
     dev = args.means3d.device
     if bg is None:
         bg = torch.zeros((c,), dtype=torch.float32, device=dev)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=dev).contiguous()
-    if impl not in KERNELS:
+    if impl not in ("cuda", "plain"):
         raise ValueError(f"unknown composite impl: {impl!r}")
+    check_kernel_limits(config, c)
     streams, k = composite_inputs(args, camera, config)
     offsets = torch.stack([s.offsets for s in streams])
     counts = torch.stack([s.counts for s in streams])
     lane = torch.stack([s.lane for s in streams])
     image, depth, tfin, last = CompositeTable.apply(
         k["table"], bg, k["gid"], k["start"], k["end"], offsets, counts, lane,
-        k["geometry"], impl,
+        k["geometry"], (impl, config.kernel),
     )
     return RenderOutput(
         image=image,

@@ -5,8 +5,10 @@
 Every Gaussian g of a view owns the contiguous emission slots
 ``[offsets[g], offsets[g] + counts[g])``; the binning sort moved each kept
 slot to a sorted pair position.  ``pos_of_slot_of`` inverts that map (P for
-a dropped slot), and the routing sums each Gaussian's pair rows over its
-slots:
+a dropped slot) for the exact stream; the padded stream carries its own
+(``PairStream.q_of_slot``, padded to P by ``padded.routing_slots``).  The
+routing sums each Gaussian's pair rows over its slots, 7 + C rows for C of
+1..9 (K4's and K5's widest):
 
 - ``route_pairs_cuda`` launches ``csrc/route_pairs.cu``, which replaces the
   TPU's carried cumsum kernel: one warp per (view, Gaussian) sums the rows
@@ -69,6 +71,8 @@ def route_pairs_cuda(rows, pos_of_slot, offsets, counts) -> torch.Tensor:
     _build.require_cuda("route_pairs_cuda", tensors)
     _check(*tensors)
     v, p, r = rows.shape
+    if not 8 <= r <= 16:
+        raise ValueError(f"the routing kernel takes 8..16 rows (7 + 1..9 channels), got {r}")
     n = offsets.shape[1]
     out = torch.empty((v, n, r), dtype=torch.float32, device=rows.device)
     lib = _build.load_library()

@@ -1,6 +1,7 @@
 """Where a stage-2 training step's time goes, on the card.
 
     python -m splatpu_torch.tools.profile_training [--timesteps 8] [--iterations 2]
+                                                   [--path grid|manual|padded]
 
 Trains config 3 (the 100,585-Gaussian cloud, the config3_100k_r5 network
 with a fresh Adam, five 1280x720 views per step, uint8 targets rendered from
@@ -11,7 +12,10 @@ each stage (the ``deform``, ``render``, ``loss``, ``backward``, ``adam`` and
 ``snapshot`` ranges of the step), the device time by kernel inside the
 steps, and the device's busy and idle share of the steps' window (each
 ``train_step`` range, which ends after the step's synchronisation).  Setup
-(kNN graph, encodings, staging) is outside those windows.
+(kNN graph, encodings, staging) is outside those windows.  ``--path`` picks
+the render path: K1/K2 (``grid``, the default), K4 (``manual``, through
+``binning_overrides``) or K5 (``padded``: ``renderer="cuda_padded"`` with a
+budget measured at 16 px tiles over the first timestep's cameras).
 """
 
 from __future__ import annotations
@@ -23,7 +27,9 @@ from pathlib import Path
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from splatpu_torch.core.types import Camera, activate_cloud
 from splatpu_torch.io.checkpoint import load_cloud, load_stage2_run
+from splatpu_torch.render.api import demand_binning, measure_binning_demand
 from splatpu_torch.tools.train_scene import render_targets
 from splatpu_torch.train.stage2 import Stage2Config, compact_cloud, train
 
@@ -49,6 +55,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--timesteps", type=int, default=8)
     p.add_argument("--iterations", type=int, default=2)
+    p.add_argument("--path", choices=("grid", "manual", "padded"), default="grid")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -63,6 +70,15 @@ def main(argv=None) -> int:
         timestep_count=args.timesteps, renderer="cuda", quirk_compat=head["quirk_compat"],
         view_staging="device_u8", timestep_order="shuffled", **{k: head[k] for k in HEAD},
     )
+    if args.path == "manual":
+        config = dataclasses.replace(config, binning_overrides={"kernel": "manual"})
+    elif args.path == "padded":
+        cams = Camera(w2c=torch.stack([torch.from_numpy(v.w2c) for v in views[0]]).float().to(dev),
+                      K=torch.stack([torch.from_numpy(v.K) for v in views[0]]).float().to(dev),
+                      width=views[0][0].width, height=views[0][0].height)
+        demand = measure_binning_demand(activate_cloud(cloud), cams, tile=16)
+        config = dataclasses.replace(config, renderer="cuda_padded", binning=demand_binning(
+            *demand, tile=16, headroom=config.binning_headroom))
     warm = dataclasses.replace(config, total_iterations=1, timestep_count=1)
     train(cloud, views[:1], warm, initial_net=load_stage2_run(run, device=dev)[0], device=dev)
     torch.cuda.synchronize()
@@ -93,7 +109,7 @@ def main(argv=None) -> int:
             kernels[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
     dev_ms = sum(t for t, _ in kernels.values()) / 1e3
     window_ms = sum(b - a for a, b in windows) / 1e3
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"card: {torch.cuda.get_device_name(0)}; path {args.path}")
     print(f"steps {steps}: wall per step (CUDA events) {wall_ms / steps:.3f} ms;"
           f" profiled step windows {window_ms / steps:.3f} ms per step")
     for ev in prof.key_averages():

@@ -9,6 +9,12 @@ frame comes last and is put first, as in the JAX package.  ``timestep_count``
 is also the progress normaliser, so a shorter rollout is a different
 computation, not a prefix.
 
+``config.renderer`` picks the render path (``render/api.py``); with no
+``config.binning`` the budget is sized at 32 px tiles, as in the JAX
+package, so the padded path (``"cuda_padded"``) needs a 16 px binning and
+``kernel="manual"`` comes in through the binning, not through
+``binning_overrides``, which serving does not read.
+
 The pair budget is sized from measured demand; an overflowed render is
 rendered again under a doubled budget (pair and span growth apart), at most
 ``MAX_BUDGET_GROWTHS`` times.  Frames come back as uint8 (H, W, 3) arrays;

@@ -3,7 +3,10 @@ rollout, on one device (port of ``splatpu/train/stage2.py:53-406, 409-776``).
 
 Each step deforms the frozen cloud with the network, renders the V sampled
 views of the timestep in ONE batched render (forward composite K1, backward
-composite K2 and the routing kernel on the card), takes 0.8 L1 + 0.2 SSIM
+composite K2 and the routing kernel on the card; K4 under
+``binning_overrides={"kernel": "manual"}``; K5 under
+``renderer="cuda_padded"``, which needs a 16 px ``binning``, since the
+budget sized here without one is at 32 px), takes 0.8 L1 + 0.2 SSIM
 summed over the views plus 3 * V * rigidity, back-propagates into the
 network only, applies Adam under the warmup-cosine schedule, and snapshots
 the deformed cloud (detached) as the next step's "previous" state.  The

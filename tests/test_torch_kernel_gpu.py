@@ -1,5 +1,6 @@
-"""The CUDA composite kernels (forward, backward) and the routing kernel
-against their plain PyTorch versions, on the card.
+"""The CUDA composite kernels (K1/K2, K4 under kernel="manual", K5 of the
+padded path; forward and backward) and the routing kernel against their
+plain PyTorch versions, on the card.
 
 Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere.  Imports nothing of
 JAX, so it runs on a machine without it:
@@ -141,3 +142,116 @@ def test_render_gradients_cuda_match_plain(cuda):
     for f, g in grads["cuda"].items():
         assert torch.isfinite(g).all(), f
         assert scaled_err(g, grads["plain"][f]) <= 1e-4, f
+
+
+def manual_case(args, cams, channels, seed, cuda):
+    """The exact stream at 16 px tiles with ``channels`` seeded colours, the
+    K4 forward inputs, and random cotangents."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda)  # noqa: E731
+    args = tt.RenderArgs(args.means3d, t(rng.uniform(0, 1, (args.n, channels))), args.rotations,
+                         args.opacities, args.scales)
+    cfg = BinningConfig(tile=16, max_span=256, max_pairs=1 << 18, chunk_pairs=256, kernel="manual")
+    streams, k = composite_inputs(args, cams, cfg)
+    v, h, w = cams.num_views, cams.height, cams.width
+    cot = (t(rng.normal(size=(v, channels, h, w))), t(rng.normal(size=(v, h, w))),
+           t(rng.normal(size=(v, h, w))))
+    bg = torch.linspace(0.1, 0.3, channels, device=cuda)
+    return streams, (k["table"], k["gid"], k["start"], k["end"], bg), k["geometry"], cot
+
+
+@pytest.mark.parametrize("channels", [3, 9])
+def test_manual_kernels_match_plain(cuda, channels):
+    args, cams = scene(11, 2500, 2, 96, 64, 3, cuda)
+    _, kin, geo, cot = manual_case(args, cams, channels, channels, cuda)
+    before = (composite.MANUAL_LAUNCHES, composite.MANUAL_BWD_LAUNCHES)
+    got = composite.composite_manual_fwd_cuda(*kin, **geo)
+    torch.cuda.synchronize()
+    ref = composite.composite_manual_fwd_plain(*kin, **geo)
+    assert got[0].shape == (2, channels, 64, 96)
+    for a, b, tol in zip(got[:3], ref[:3], (2e-5, 2e-4, 2e-5)):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= tol
+    assert torch.equal(got[3], ref[3]) and bool((got[3] >= 0).any())
+    rows = composite.composite_manual_bwd_cuda(*kin, got[2], got[3], *cot, **geo)
+    again = composite.composite_manual_bwd_cuda(*kin, got[2], got[3], *cot, **geo)
+    torch.cuda.synchronize()
+    assert (composite.MANUAL_LAUNCHES, composite.MANUAL_BWD_LAUNCHES) == (before[0] + 1,
+                                                                          before[1] + 2)
+    ref_rows = composite.composite_manual_bwd_plain(*kin, got[2], got[3], *cot, **geo)
+    assert rows.shape == (2, kin[1].shape[1], 7 + channels)
+    assert torch.isfinite(rows).all() and rows.abs().max() > 0
+    assert scaled_err(rows, ref_rows) <= 1e-4
+    assert torch.equal(rows, again)
+
+
+def padded_case(args, cams, channels, seed, cuda):
+    """The padded stream of every view at 16 px tiles with ``channels``
+    seeded colours, K5's inputs (records gathered by gid), and random
+    cotangents."""
+    from splatpu_torch.render.binning import build_pair_stream
+    from splatpu_torch.render.composite import pack_table
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda)  # noqa: E731
+    args = tt.RenderArgs(args.means3d, t(rng.uniform(0, 1, (args.n, channels))), args.rotations,
+                         args.opacities, args.scales)
+    cfg = BinningConfig(tile=16, max_span=256, max_pairs=1 << 17, chunk_pairs=128)
+    streams = [build_pair_stream(args, cams.view(i), cfg) for i in range(cams.num_views)]
+    records = torch.stack([
+        pack_table(s.splats.mean2d, s.splats.conic, s.g_opacity, s.splats.depth, s.g_colors)
+        [s.gid.long()] for s in streams]).contiguous()
+    v, h, w = cams.num_views, cams.height, cams.width
+    geo = dict(tiles_x=-(-w // 16), tiles_y=-(-h // 16), width=w, height=h)
+    cot = (t(rng.normal(size=(v, channels, h, w))), t(rng.normal(size=(v, h, w))),
+           t(rng.normal(size=(v, h, w))))
+    bg = torch.linspace(0.1, 0.3, channels, device=cuda)
+    start = torch.stack([s.start for s in streams])
+    end = torch.stack([s.end for s in streams])
+    return (records, start, end, bg), geo, cot
+
+
+@pytest.mark.parametrize("channels", [3, 9])
+def test_padded_kernels_match_plain(cuda, channels):
+    import splatpu_torch.render.padded as padded
+
+    args, cams = scene(12, 2500, 2, 100, 70, 3, cuda)
+    kin, geo, cot = padded_case(args, cams, channels, channels + 1, cuda)
+    before = (padded.LAUNCHES, padded.BWD_LAUNCHES)
+    got = padded.padded_fwd_cuda(*kin, **geo)
+    torch.cuda.synchronize()
+    ref = padded.padded_fwd_plain(*kin, **geo)
+    for a, b, tol in zip(got[:3], ref[:3], (2e-5, 2e-4, 2e-5)):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= tol
+    assert torch.equal(got[3], ref[3]) and bool((got[3] >= 0).any())
+    rows = padded.padded_bwd_cuda(*kin, got[2], got[3], *cot, **geo)
+    again = padded.padded_bwd_cuda(*kin, got[2], got[3], *cot, **geo)
+    torch.cuda.synchronize()
+    assert (padded.LAUNCHES, padded.BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    ref_rows = padded.padded_bwd_plain(*kin, got[2], got[3], *cot, **geo)
+    assert torch.isfinite(rows).all() and rows.abs().max() > 0
+    assert scaled_err(rows, ref_rows) <= 1e-4
+    assert torch.equal(rows, again)
+
+
+@pytest.mark.parametrize("impls,kernel", [(("cuda", "plain"), "manual"),
+                                          (("cuda_padded", "plain_padded"), "grid")])
+def test_new_path_gradients_cuda_match_plain(cuda, impls, kernel):
+    from splatpu_torch.render.api import render
+
+    args, cams = scene(13, 2000, 2, 96, 64, 3, cuda)
+    cfg = BinningConfig(tile=16, max_span=256, max_pairs=1 << 17, chunk_pairs=128, kernel=kernel)
+    target = torch.full((2, 3, 64, 96), 0.4, device=cuda)
+    grads = {}
+    for impl in impls:
+        leaves = {f: getattr(args, f).clone().requires_grad_(True)
+                  for f in ("means3d", "colors", "rotations", "opacities", "scales")}
+        out = render(tt.RenderArgs(**leaves), cams, bg=torch.full((3,), 0.2, device=cuda),
+                     impl=impl, config=cfg)
+        loss = (out.image - target).abs().mean() + 0.1 * out.depth.mean()
+        loss.backward()
+        grads[impl] = {f: x.grad for f, x in leaves.items()}
+    for f, g in grads[impls[0]].items():
+        assert torch.isfinite(g).all(), f
+        assert scaled_err(g, grads[impls[1]][f]) <= 1e-4, f

@@ -5,9 +5,10 @@ Tolerances, each with its reason:
 - SSIM and the losses 1e-6: the same float32 shifted adds, summed in
   another order;
 - the schedule 1e-7 relative: the same float32 operations;
-- kNN indices identical (a scene without near ties); squared distances
-  1e-6 (|a|^2 + |b|^2 - 2ab in float32, two matmul libraries), and so the
-  weights exp(-2000 d^2) 2e-3;
+- kNN indices identical (a scene without near ties, and a 6x6x6 integer
+  grid, whose exact ties both order lower index first); squared distances
+  1e-6 (|a|^2 + |b|^2 - 2ab in float32, two matmul libraries; exact on the
+  grid), and so the weights exp(-2000 d^2) 2e-3;
 - rigidity loss and its gradients 1e-5 relative;
 - the step: see test_one_step_matches_jax.
 """
@@ -94,6 +95,18 @@ def test_schedule_matches_jax(warmup, total):
         assert toptim.stage2_lr_at(1e-3, warmup, total, step) == joptim.stage2_lr_at(
             1e-3, warmup, total, step)
     assert got(0) == pytest.approx(1e-6 if warmup else 1e-3, rel=1e-6)
+
+
+def test_knn_grid_ties_match_jax():
+    # A 6x6x6 integer grid: every row's neighbours come in groups at exactly
+    # equal distances, and the 20th falls inside such a group, so the order
+    # among equals decides the neighbour set (lower index first, as JAX).
+    g = np.arange(6, dtype=np.float32)
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    ref_i, ref_d = (np.asarray(x) for x in jknn(jnp.asarray(pts), k=20, chunk=64))
+    got_i, got_d = knn_bruteforce(torch.from_numpy(pts), 20, chunk=64)
+    np.testing.assert_array_equal(got_i.numpy(), ref_i)
+    np.testing.assert_array_equal(got_d.numpy(), ref_d)
 
 
 @pytest.mark.parametrize("n,k", [(600, 20), (5, 8)])
@@ -198,8 +211,13 @@ def step_inputs():
 
 
 def test_one_step_matches_jax(step_inputs):
+    check_one_step(step_inputs, "pallas", JBinningConfig(**BCFG), "plain", BinningConfig(**BCFG))
+
+
+def check_one_step(step_inputs, jax_renderer, jax_binning, port_renderer, port_binning):
+    """One stage-2 step of each package from identical state, compared."""
     raw, cloud, w2c, K, targets, sched = step_inputs
-    jcfg = js2.Stage2Config(renderer="pallas", binning=JBinningConfig(**BCFG),
+    jcfg = js2.Stage2Config(renderer=jax_renderer, binning=jax_binning,
                             compute_dtype="float32", **sched)
     cloud_j, fg_j, nbr_j, enc_j, _, _, _ = js2.setup(jax_cloud(cloud), jcfg)
     params = {"fc_in": raw["net_params"]["fc_in"], "fc_out": raw["net_params"]["fc_out"],
@@ -216,7 +234,7 @@ def test_one_step_matches_jax(step_inputs):
         enc_j, fg_j, nbr_j,
     )
 
-    tcfg = ts2.Stage2Config(renderer="plain", binning=BinningConfig(**BCFG), **sched)
+    tcfg = ts2.Stage2Config(renderer=port_renderer, binning=port_binning, **sched)
     sd = state_dict_from_jax(raw["net_params"])
     net = DeformationNet(net_config_for(sd, **{k: sched[k] for k in (
         "delta_scale", "double_residual", "zero_init_head", "time_gate_head")}))
