@@ -8,7 +8,8 @@ Phases, each printed with its wall time and bounded by a watchdog:
 
 1. device: require CUDA; print the card's name and power limit.
 2. build: compile ``splatpu_torch/csrc/*.cu`` with nvcc, one process per
-   source, all at once (ptxas lines shown).
+   source, all at once; print the registers of the kernels in
+   ``PTXAS_NAMES`` and fail if one is missing.
 3. compare: the forward-composite kernel K1 against its plain PyTorch
    version on the real 100,585-Gaussian cloud, five orbit cameras at
    320x180, one launch.
@@ -31,7 +32,8 @@ Phases, each printed with its wall time and bounded by a watchdog:
    window of ``gid`` that holds those segments.
 6. compare_padded: K5 (the padded composite), forward and backward, against
    its plain versions at 5 x 320x180 on padded pair streams built on the
-   card at 16 px tiles, 3 and 9 channels, the same tolerances, and the
+   card at 16 px tiles, 3 and 9 channels, the same tolerances, the routing
+   in its padded slot mode (the stream's ``q_of_slot``) and the
    ``CompositeG`` backward "cuda" against "plain".
 7. serve, serve_manual, serve_padded: ``run_inference`` at full width: the
    config-3 checkpoint's network (hidden 128, 3 blocks, head settings from
@@ -62,9 +64,13 @@ Phases, each printed with its wall time and bounded by a watchdog:
    trainer's final budget) against its plain version, CUDA-event times,
    the plain versions' times, one ``index_add_`` of the kept pairs' rows by
    (view, gid) as the routing's library yardstick, and the bounds from this
-   run's inputs.
+   run's inputs; the slots per (view, Gaussian) of both streams, and the
+   routing in its padded mode at the padded path's training shapes against
+   its plain version, with its time, the plain version's, one
+   ``index_add_`` of the in-budget slots' rows by (view, gid) and its bound.
 
-Prints one ``{"kernels": [...]}`` JSON line, then the card line, and last
+Prints one ``{"kernels": [...]}`` JSON line (the routing once per slot
+mode, each with the launches of its paths), then the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; nothing is
 caught and continued.  Imports nothing of JAX.
 """
@@ -121,13 +127,22 @@ COUNTERS = {
     "padded_fwd": ("splatpu_torch.render.padded", "LAUNCHES"),
     "padded_bwd": ("splatpu_torch.render.padded", "BWD_LAUNCHES"),
 }
-# ptxas's kernel names -> the JSON line's kernel names (3-channel instances).
+# ptxas's (mangled) kernel names -> the names printed with their registers:
+# the 3-channel instances at the tiles the paths use (the backward kernels'
+# template arguments are <C, tile>), the routing's 10 rows in both slot
+# modes (<R, padded>), and the 9-channel and 16-row instances.  The build
+# phase fails if one is missing from nvcc's log.
 PTXAS_NAMES = {
-    "composite_fwd_kernelILi3E": "composite_fwd", "composite_bwd_kernelILi3E": "composite_bwd",
-    "route_pairs_kernelILi10E": "route_pairs", "route_pairs_kernelILi16E": "route_pairs R=16",
-    "manual_fwd_kernelILi3E": "composite_manual_fwd", "manual_bwd_kernelILi3E": "composite_manual_bwd",
+    "composite_fwd_kernelILi3E": "composite_fwd",
+    "composite_bwd_kernelILi3ELi32E": "composite_bwd",
+    "composite_bwd_kernelILi3ELi16E": "composite_bwd tile 16",
+    "route_pairs_kernelILi10ELb0E": "route_pairs",
+    "route_pairs_kernelILi10ELb1E": "route_pairs padded",
+    "route_pairs_kernelILi16ELb1E": "route_pairs R=16 padded",
+    "manual_fwd_kernelILi3E": "composite_manual_fwd",
+    "manual_bwd_kernelILi3ELi32E": "composite_manual_bwd",
     "manual_fwd_kernelILi9E": "composite_manual_fwd C=9",
-    "manual_bwd_kernelILi9E": "composite_manual_bwd C=9",
+    "manual_bwd_kernelILi9ELi32E": "composite_manual_bwd C=9",
     "padded_fwd_kernelILi3E": "padded_fwd", "padded_bwd_kernelILi3E": "padded_bwd",
     "padded_fwd_kernelILi9E": "padded_fwd C=9", "padded_bwd_kernelILi9E": "padded_bwd C=9",
 }
@@ -156,13 +171,6 @@ def zero_counts() -> None:
 
     for m, a in COUNTERS.values():
         setattr(importlib.import_module(m), a, 0)
-
-
-def row_scaled_err(got, ref) -> float:
-    """max over the last dimension's rows of max|got - ref| / max|ref|."""
-    d = (got - ref).abs().reshape(-1, got.shape[-1]).amax(0)
-    s = ref.abs().reshape(-1, ref.shape[-1]).amax(0)
-    return float((d / s.clamp(min=1e-30)).max())
 
 
 class StepLog:
@@ -281,19 +289,32 @@ def padded_case(args, cams, binning):
            torch.zeros(args.colors.shape[1], device=gid.device))
     out = padded.padded_fwd_cuda(*kin, **geo)
     return dict(kin=kin, geo=geo, out=out, fwd=out[2:], cot=cotangents(*out[:3]), table=table,
-                gid=gid, pos=padded.routing_slots(stack("q_of_slot"), gid.shape[1]),
-                offsets=stack("emit_offsets"), counts=stack("emit_counts"))
+                gid=gid, pos=stack("q_of_slot"), offsets=stack("emit_offsets"),
+                counts=stack("emit_counts"))
 
 
 def ptxas_summary(log: str) -> dict:
-    """kernel -> 'N registers, M B smem' from nvcc's -Xptxas -v lines."""
-    out, name = {}, None
+    """kernel -> 'N registers, M B smem; S bytes spill stores, ...' from
+    nvcc's -Xptxas -v lines."""
+    out, name, spill = {}, None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = next((v for k, v in PTXAS_NAMES.items() if k in line), None)
+            spill = ""
+        elif "bytes spill stores" in line:
+            spill = line.strip()
         elif name and "Used" in line and "registers" in line:
-            out[name] = line.split("ptxas info    :")[-1].strip()
+            out[name] = f"{line.split('ptxas info    :')[-1].strip()}; {spill}"
     return out
+
+
+def print_slot_runs(what, counts) -> None:
+    """The emission slots per (view, Gaussian): the routing walks each run
+    serially."""
+    c = counts.reshape(-1).long()
+    print(f"  {what}: slots per (view, Gaussian) max {int(c.max())}, mean"
+          f" {float(c.float().mean()):.3f}, over 32 {int((c > 32).sum())} of {c.numel()},"
+          f" over 128 {int((c > 128).sum())}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -311,20 +332,6 @@ def phase(name: str, budget_s: int):
     yield
     faulthandler.cancel_dump_traceback_later()
     print(f"[{name}] done in {time.perf_counter() - t0:.2f} s", flush=True)
-
-
-def cuda_ms(fn, reps: int, warmup: int) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def compare(got, ref) -> dict:
@@ -506,6 +513,7 @@ def compare_table_bwd(where, case, bwd, bwd_plain, impl):
 
     import splatpu_torch.render.route as route
     from splatpu_torch.render.exact import CompositeTable
+    from splatpu_torch.tools.measure import row_scaled_err
 
     kin, geo, cot = case["kin"], case["geo"], case["cot"]
     rows = bwd(*kin, *case["fwd"], *cot, **geo)
@@ -544,6 +552,7 @@ def big_budget_case(case):
     import torch
 
     import splatpu_torch.render.composite as composite
+    from splatpu_torch.tools.measure import row_scaled_err
 
     table, gid, start, end, bg = (x[:1] if x.dim() > 1 else x for x in case["kin"])
     geo = case["geo"]
@@ -599,6 +608,7 @@ def compare_padded_case(where, args, cams, binning):
 
     import splatpu_torch.render.padded as padded
     import splatpu_torch.render.route as route
+    from splatpu_torch.tools.measure import row_scaled_err
 
     case = padded_case(args, cams, binning)
     kin, geo, cot = case["kin"], case["geo"], case["cot"]
@@ -608,8 +618,9 @@ def compare_padded_case(where, args, cams, binning):
     rows = padded.padded_bwd_cuda(*kin, *case["fwd"], *cot, **geo)
     torch.cuda.synchronize()
     rows_ref = padded.padded_bwd_plain(*kin, *case["fwd"], *cot, **geo)
-    routed = route.route_pairs_cuda(rows, case["pos"], case["offsets"], case["counts"])
-    routed_ref = route.route_pairs_plain(rows, case["pos"], case["offsets"], case["counts"])
+    routing = (case["pos"], case["offsets"], case["counts"])
+    routed = route.route_pairs_cuda(rows, *routing, padded=True)
+    routed_ref = route.route_pairs_plain(rows, *routing, padded=True)
     d_table = {}
     for impl in ("cuda", "plain"):
         table = case["table"].clone().requires_grad_(True)
@@ -618,7 +629,7 @@ def compare_padded_case(where, args, cams, binning):
         torch.autograd.backward(outs[:3], cot)
         d_table[impl] = table.grad
     again = route.route_pairs_cuda(padded.padded_bwd_cuda(*kin, *case["fwd"], *cot, **geo),
-                                   case["pos"], case["offsets"], case["counts"])
+                                   *routing, padded=True)
     torch.cuda.synchronize()
     for name, x in (("rows", rows), ("routed", routed), ("d_table", d_table["cuda"])):
         if not bool(torch.isfinite(x).all()) or not bool((x != 0).any()):
@@ -653,6 +664,7 @@ def main() -> int:
     from splatpu_torch.io.checkpoint import load_cloud, load_stage2_run
     from splatpu_torch.render.api import demand_binning, measure_binning_demand
     from splatpu_torch.render.exact import composite_inputs
+    from splatpu_torch.tools.measure import cuda_ms, row_scaled_err
     from splatpu_torch.train.inference import create_orbit_cameras
     from splatpu_torch.train.stage2 import Stage2Config, compact_cloud
 
@@ -673,6 +685,9 @@ def main() -> int:
         regs = ptxas_summary(_build.build_log)
         for k, v in regs.items():
             print(f"  ptxas {k}: {v}", flush=True)
+        missing = sorted(set(PTXAS_NAMES.values()) - set(regs))
+        if missing:
+            fail(f"nvcc's log names no register count for {missing}")
         if re.search(r"[1-9]\d* bytes spill", _build.build_log):
             print("  (some instances spill: see the log's spill lines)", flush=True)
 
@@ -889,6 +904,7 @@ def main() -> int:
         r_tb, r_to = 1e3 * r_bytes / PEAK_BYTES_S, 1e3 * r_ops / PEAK_FP32_FLOPS
         print(f"  V={v} N={n} P={p} pairs={pairs} kept={n_kept}; backward evaluations {evals},"
               f" live {live}", flush=True)
+        print_slot_runs("exact stream", counts)
         print(f"  {label} {b_ms:.4f} ms/launch, plain {b_plain_ms:.2f} ms; bound"
               f" {max(b_tb, b_to):.4f} ms (bytes {b_bytes} -> {b_tb:.4f} ms, FP32 ops"
               f" {b_ops} -> {b_to:.4f} ms)", flush=True)
@@ -979,12 +995,52 @@ def main() -> int:
               f" (bytes {b_bytes} -> {b_tb:.4f} ms, FP32 ops {b_ops} -> {b_to:.4f} ms)",
               flush=True)
         k5b = dict(err=k5b_err, ms=b_ms, plain_ms=b_plain_ms, bound=(max(b_tb, b_to), b_tb, b_to))
-        del case, rows
+        pos, offsets, counts = case["pos"], case["offsets"], case["counts"]
+        run = lambda: route.route_pairs_cuda(rows, pos, offsets, counts, padded=True)  # noqa: E731
+        run_plain = lambda: route.route_pairs_plain(rows, pos, offsets, counts, padded=True)  # noqa: E731
+        print_slot_runs("padded stream", counts)
+        routed, routed_ref = run(), run_plain()
+        check_rows("routing, padded mode, at the training shapes",
+                   {"routing": row_scaled_err(routed, routed_ref)})
+        rp_err = float((routed - routed_ref).abs().max())
+        # The library yardstick at these shapes: one index_add_ of the rows
+        # of the slots inside the budget by (view, gid), gathered beforehand
+        # (not timed); the same function unless the render overflowed.
+        s_len, n = pos.shape[1], offsets.shape[1]
+        in_budget = (torch.arange(s_len, device=dev)[None]
+                     < counts.long().sum(1, keepdim=True))
+        q = pos.long()
+        index = (torch.gather(case["gid"].long(), 1, q)
+                 + n * torch.arange(v, device=dev)[:, None])[in_budget]
+        slot_rows = torch.gather(rows, 1, q[..., None].expand(-1, -1, rec))[in_budget]
+        library = lambda: torch.zeros((v * n, rec), device=dev).index_add_(0, index, slot_rows)  # noqa: E731
+        lib_err = float((library().reshape(v, n, rec) - routed).abs().max())
+        rp_ms = cuda_ms(run, reps=50, warmup=5)
+        rp_plain_ms = cuda_ms(run_plain, reps=5, warmup=1)
+        rp_lib_ms = cuda_ms(library, reps=50, warmup=5)
+        # Bytes: the rows and slot-map entries of the slots inside the budget
+        # once each (a clipped slot reads slot S - 1's again), the offsets
+        # and counts, the table written once; one add per row of every slot.
+        n_read = int(in_budget.sum())
+        rp_bytes = 4 * (n_read * (rec + 1) + 2 * v * n + v * n * rec)
+        rp_ops = int(counts.long().sum()) * rec
+        rp_tb, rp_to = 1e3 * rp_bytes / PEAK_BYTES_S, 1e3 * rp_ops / PEAK_FP32_FLOPS
+        print(f"  routing, padded mode (S={s_len}, slots in budget {n_read}): {rp_ms:.4f}"
+              f" ms/launch, plain {rp_plain_ms:.3f} ms, index_add_ {rp_lib_ms:.4f} ms (max |d|"
+              f" vs kernel {lib_err:.3e}); bound {max(rp_tb, rp_to):.4f} ms (bytes {rp_bytes} ->"
+              f" {rp_tb:.4f} ms, adds {rp_ops} -> {rp_to:.5f} ms)", flush=True)
+        k3p = dict(err=rp_err, ms=rp_ms, plain_ms=rp_plain_ms,
+                   bound=(max(rp_tb, rp_to), rp_tb, rp_to), library_ms=rp_lib_ms)
+        del case, rows, routed, routed_ref, index, slot_rows
 
     for k, v in ptxas_summary(_build.build_log).items():
         print(f"  ptxas {k}: {v}", flush=True)
     launched = {path: counts for path, (counts, _) in {**served, **trained}.items()}
     by_path = lambda name: {p: c[name] for p, c in launched.items() if c[name]}  # noqa: E731
+    # The routing kernel has one counter; its slot mode follows the path.
+    routes = by_path("route_pairs")
+    routes_padded = {p: k for p, k in routes.items() if p == "train_padded"}
+    routes_exact = {p: k for p, k in routes.items() if p not in routes_padded}
     kernels = [
         kernel_entry("composite_fwd", "splatpu_torch/csrc/composite_fwd.cu",
                      "splatpu/render/exact.py:856 (_fwd_kernel_grid)", by_path("composite_fwd"),
@@ -993,8 +1049,10 @@ def main() -> int:
                      "splatpu/render/exact.py:994 (_bwd_kernel_grid)", by_path("composite_bwd"),
                      **k2),
         kernel_entry("route_pairs", "splatpu_torch/csrc/route_pairs.cu",
-                     "splatpu/render/exact.py:1320 (_cumsum_pairs_pallas)", by_path("route_pairs"),
-                     **k3),
+                     "splatpu/render/exact.py:1320 (_cumsum_pairs_pallas)", routes_exact, **k3),
+        kernel_entry("route_pairs_padded", "splatpu_torch/csrc/route_pairs.cu",
+                     "splatpu/render/exact.py:1320 (_cumsum_pairs_pallas); slot semantics of"
+                     " splatpu/render/pallas_composite.py:507-513", routes_padded, **k3p),
         kernel_entry("composite_manual_fwd", "splatpu_torch/csrc/composite_manual_fwd.cu",
                      "splatpu/render/exact.py:608 (_fwd_kernel)", by_path("composite_manual_fwd"),
                      **k4f),

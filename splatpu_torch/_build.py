@@ -47,19 +47,19 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def compile_command(source: Path) -> list[str]:
+def compile_command(source: Path, build_dir: Path) -> list[str]:
     """nvcc of one source into a position-independent object."""
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(BUILD_DIR / f"{source.stem}.o"), str(source),
+        "-o", str(build_dir / f"{source.stem}.o"), str(source),
     ]
 
 
-def link_command(objects: list[Path]) -> list[str]:
+def link_command(objects: list[Path], library: Path) -> list[str]:
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-        "-o", str(LIBRARY), *(str(o) for o in objects),
+        "-o", str(library), *(str(o) for o in objects),
     ]
 
 
@@ -92,17 +92,24 @@ def _run_all(cmds: list[list[str]]) -> str:
     return "".join(outs)
 
 
+def build_library(srcs: list[Path], library: Path) -> tuple[ctypes.CDLL, str]:
+    """Compile ``srcs`` and link them into ``library``, in its directory,
+    which is deleted and made anew; return the loaded library and nvcc's
+    log."""
+    build_dir = library.parent
+    shutil.rmtree(build_dir, ignore_errors=True)
+    build_dir.mkdir(parents=True)
+    log = _run_all([compile_command(src, build_dir) for src in srcs])
+    log += _run_all([link_command([build_dir / f"{src.stem}.o" for src in srcs], library)])
+    return ctypes.CDLL(str(library)), log
+
+
 def load_library() -> ctypes.CDLL:
     """The kernel library, built from the sources on first call."""
     global _lib, build_log, build_seconds
     if _lib is None:
         t0 = time.perf_counter()
-        shutil.rmtree(BUILD_DIR, ignore_errors=True)
-        BUILD_DIR.mkdir(parents=True)
-        srcs = sources()
-        build_log = _run_all([compile_command(src) for src in srcs])
-        build_log += _run_all([link_command([BUILD_DIR / f"{src.stem}.o" for src in srcs])])
-        lib = ctypes.CDLL(str(LIBRARY))
+        lib, build_log = build_library(sources(), LIBRARY)
         lib.splatpu_cuda_error_string.argtypes = [ctypes.c_int]
         lib.splatpu_cuda_error_string.restype = ctypes.c_char_p
         build_seconds = time.perf_counter() - t0

@@ -8,7 +8,7 @@
 // tile's pixels as exact.py::_grad_contrib writes them; the opacity row is
 // sum(dpower) / opacity where opacity > 0.  The walk is
 // composite_common.cuh's backward body; this file instantiates it for 1..5
-// channels, BATCH pairs per batch, up to 32 px tiles (32 warps).
+// channels at 16 and 32 px tiles (64 and 256 threads of 4 pixels each).
 
 #include "composite_common.cuh"
 
@@ -17,12 +17,10 @@ namespace {
 using namespace splatpu;
 
 constexpr int MAX_C = 5;
-constexpr int BATCH = 16;
-constexpr int MAX_WARPS = 32;  // 1024 threads
-
-template <int C>
-__global__ void __launch_bounds__(1024) composite_bwd_kernel(Walk w, BwdIn g) {
-  composite_bwd_body<C, Family::kExact, BATCH, MAX_WARPS>(w, g);
+template <int C, int TILE>
+__global__ void __launch_bounds__(bwd_threads(TILE), bwd_min_blocks(TILE, C))
+    composite_bwd_kernel(Walk w, BwdIn g) {
+  composite_bwd_body<C, Family::kExact, TILE>(w, g);
 }
 
 }  // namespace
@@ -30,17 +28,15 @@ __global__ void __launch_bounds__(1024) composite_bwd_kernel(Walk w, BwdIn g) {
 extern "C" {
 
 // Launches the backward composite on `stream` over a (num_tiles, V) grid of
-// tile*tile threads (a multiple of 32, at most 1024); `d_rows` must be
-// zeroed by the caller.  Returns cudaGetLastError() (0 on success).
+// bwd_threads(tile) threads, tile 16 or 32; `d_rows` must be zeroed by the
+// caller.  Returns cudaGetLastError() (0 on success).
 int splatpu_composite_bwd(const void* table, const void* gid, const void* start,
                           const void* end, const void* bg, const void* tfinal,
                           const void* last, const void* g_img, const void* g_depth,
                           const void* g_tf, void* d_rows, int V, int N, int P,
                           int C, int tiles_x, int tiles_y, int tile, int width,
                           int height, void* stream) {
-  if (C < 1 || C > MAX_C || tile < 1 || tile * tile > 1024 || (tile * tile) % 32 != 0 ||
-      V < 1 || V > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (C < 1 || C > MAX_C || V < 1 || V > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const Walk w{static_cast<const float*>(table), static_cast<const int*>(gid),
                static_cast<const int*>(start), static_cast<const int*>(end),
                static_cast<const float*>(bg), N, P, tiles_x, tiles_x * tiles_y, tile,
@@ -49,10 +45,14 @@ int splatpu_composite_bwd(const void* table, const void* gid, const void* start,
                 static_cast<const float*>(g_img), static_cast<const float*>(g_depth),
                 static_cast<const float*>(g_tf), static_cast<float*>(d_rows)};
   const dim3 grid(w.num_tiles, V);
-  with_channels<MAX_C>(C, [&](auto nc) {
-    composite_bwd_kernel<decltype(nc)::value>
-        <<<grid, tile * tile, 0, static_cast<cudaStream_t>(stream)>>>(w, g);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool tile_ok = with_bwd_tile(tile, [&](auto nt) {
+    constexpr int TILE = decltype(nt)::value;
+    with_channels<MAX_C>(C, [&](auto nc) {
+      composite_bwd_kernel<decltype(nc)::value, TILE><<<grid, bwd_threads(TILE), 0, s>>>(w, g);
+    });
   });
+  if (!tile_ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

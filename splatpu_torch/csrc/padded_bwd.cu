@@ -22,21 +22,20 @@ using namespace splatpu;
 
 constexpr int MAX_C = 9;
 constexpr int TILE = 16;
-constexpr int NPIX = TILE * TILE;
-constexpr int BATCH = 32;  // pairs staged per shared-memory batch
 
 template <int C>
-__global__ void __launch_bounds__(NPIX) padded_bwd_kernel(Walk w, BwdIn g) {
-  composite_bwd_body<C, Family::kPadded, BATCH, NPIX / 32>(w, g);
+__global__ void __launch_bounds__(bwd_threads(TILE), bwd_min_blocks(TILE, C))
+    padded_bwd_kernel(Walk w, BwdIn g) {
+  composite_bwd_body<C, Family::kPadded, TILE>(w, g);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches K5's backward on `stream` over a (num_tiles, V) grid of 256
-// threads, C of 1..9; `d_rows` must be zeroed by the caller.  Returns
-// cudaGetLastError() (0 on success).
+// Launches K5's backward on `stream` over a (num_tiles, V) grid of
+// bwd_threads(16) = 64 threads, C of 1..9; `d_rows` must be zeroed by the
+// caller.  Returns cudaGetLastError() (0 on success).
 int splatpu_padded_bwd(const void* records, const void* start, const void* end, const void* bg,
                        const void* tfinal, const void* last, const void* g_img,
                        const void* g_depth, const void* g_tf, void* d_rows, int V, int Pp, int C,
@@ -51,7 +50,7 @@ int splatpu_padded_bwd(const void* records, const void* start, const void* end, 
   const dim3 grid(w.num_tiles, V);
   with_channels<MAX_C>(C, [&](auto nc) {
     padded_bwd_kernel<decltype(nc)::value>
-        <<<grid, NPIX, 0, static_cast<cudaStream_t>(stream)>>>(w, g);
+        <<<grid, bwd_threads(TILE), 0, static_cast<cudaStream_t>(stream)>>>(w, g);
   });
   return static_cast<int>(cudaGetLastError());
 }

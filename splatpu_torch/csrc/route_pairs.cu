@@ -10,21 +10,38 @@
 // counts[g]).  Hopper blocks run in no order, so a carried scan would need
 // several passes; this kernel computes the same per-Gaussian sums directly.
 //
-// Design.  One warp per (view, Gaussian).  Its lanes walk the Gaussian's
-// slots (clipped to the budget P), map each slot to its sorted position
-// through pos_of_slot (P marks a dropped slot, which adds nothing), and add
-// that pair's row; a butterfly of shuffles then sums the lanes in a fixed
-// order and lane r writes row r.  No atomics, no dependence on P: it runs at
-// every budget, and two runs give bitwise-identical sums.  It routes the
-// rows of K2 and K4 (slot map: pos_of_slot_of over the exact stream) and of
-// K5 (the padded stream's q_of_slot).
+// Two slot semantics, one per pair stream (a template flag):
+//   exact (K2, K4): the slot map is pos_of_slot, (V, P) over the rows' P
+//     positions; slots [offsets, min(offsets + counts, P)), and a slot whose
+//     position is P (dropped by the sort) adds nothing
+//     (exact.py::_route_to_table);
+//   padded (K5): the slot map is the padded stream's q_of_slot at its own
+//     length S = max_pairs; every slot s of [offsets, offsets + counts)
+//     reads position q_of_slot[min(s, S - 1)], so on an overflowed render
+//     each slot past the budget adds the last slot's row once, as
+//     splatpu/render/pallas_composite.py::_composite_g_bwd's clipped
+//     gather does.  Positions are clamped into the rows, as JAX's gather
+//     clamps.
+//
+// Design.  One thread per (view, Gaussian, row), flattened as item * R + r,
+// so no lane idles: the thread walks its Gaussian's slots serially, in slot
+// order (a fixed order, so two runs give bitwise-identical sums), reads each
+// slot's position (one broadcast address for the R threads of an item) and
+// row r of that pair (the R threads read adjacent floats), and writes
+// d_table[item * R + r] (a warp's stores are contiguous).  No shuffles, no
+// atomics, no dependence on P.  The walk is serial per Gaussian, so a long
+// slot run costs latency; at config 3's five 1280x720 training views
+// (chip_smoke.py's measure phases) a Gaussian holds at most 40 slots of
+// the exact stream (3.47 on average, 9 of 502,925 over 32) and 156 of the
+// padded stream (9.52 on average, 5 over 128), so lanes per row for long
+// runs would buy little.  The loop is unrolled by 4, so four slots' loads
+// are in flight at once.
 //
 // What bounds it.  The bytes: each kept pair row is read once (through a
 // gather), each slot's position once, the offsets and counts, and the table
-// of gradients written once; the adds are a few per byte.  Most Gaussians
-// hold a handful of slots, so most lanes of a warp idle: the warp-level
-// shuffles, not the memory, are the cost above the bound.  Packing several
-// Gaussians into one warp is later work.
+// of gradients written once; one add per row read.  A 40-byte row (R = 10)
+// spans two or three 32-byte sectors, so the gather moves ~1.6x the row
+// bytes the bound counts.
 
 #include <cuda_runtime.h>
 
@@ -32,76 +49,77 @@ namespace {
 
 constexpr int MIN_REC = 8;           // 7 geometry rows + 1..9 colours
 constexpr int MAX_REC = 16;
-constexpr int WARPS_PER_BLOCK = 8;
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int THREADS = 128;
 
-// The row count is a template parameter: each lane keeps R accumulators in
-// registers, and a runtime R would cost every launch the widest (16).
-template <int R>
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32) route_pairs_kernel(
+// The row count is a template parameter: the division of the thread index
+// into (item, row) is by a constant.
+template <int R, bool PADDED>
+__global__ void __launch_bounds__(THREADS) route_pairs_kernel(
     const float* __restrict__ d_rows,       // (V, P, R) per-pair rows
-    const int* __restrict__ pos_of_slot,    // (V, P) slot -> sorted position
+    const int* __restrict__ slot_map,       // (V, S) slot -> position
     const int* __restrict__ offsets,        // (V, N) first emission slot
     const int* __restrict__ counts,         // (V, N) emitted pairs
     float* __restrict__ d_table,            // (V, N, R) per-Gaussian rows
-    int V, int N, int P) {
-  const long long item =
-      static_cast<long long>(blockIdx.x) * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (item >= static_cast<long long>(V) * N) return;  // whole warp leaves
-  const int lane = threadIdx.x & 31;
+    long long total, int N, int P, int S) {
+  const long long t = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (t >= total) return;
+  const long long item = t / R;
+  const int r = static_cast<int>(t - item * R);
   const int v = static_cast<int>(item / N);
   const int lo = offsets[item];
-  const int hi = min(lo + counts[item], P);
-  const float* rows_v = d_rows + static_cast<size_t>(v) * P * R;
-  const int* pos_v = pos_of_slot + static_cast<size_t>(v) * P;
+  const int cnt = counts[item];
+  const float* rows_v = d_rows + static_cast<size_t>(v) * P * R + r;
+  const int* map_v = slot_map + static_cast<size_t>(v) * S;
 
-  float acc[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-  for (int s = lo + lane; s < hi; s += 32) {
-    const int p = pos_v[s];
-    if (p < P) {
-      const float* row = rows_v + static_cast<size_t>(p) * R;
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] += row[r];
+  float acc = 0.0f;
+  if (PADDED) {
+#pragma unroll 4
+    for (int i = 0; i < cnt; ++i) {
+      const int s = min(lo + i, S - 1);
+      const int q = min(max(map_v[s], 0), P - 1);
+      acc += rows_v[static_cast<size_t>(q) * R];
+    }
+  } else {
+    const int hi = min(lo + cnt, P);
+#pragma unroll 4
+    for (int s = lo; s < hi; ++s) {
+      const int p = map_v[s];
+      if (p < P) acc += rows_v[static_cast<size_t>(p) * R];
     }
   }
-  float out = 0.0f;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float x = acc[r];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
-    if (lane == r) out = x;
-  }
-  if (lane < R) d_table[static_cast<size_t>(item) * R + lane] = out;
+  d_table[t] = acc;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the routing on `stream`: one warp per (view, Gaussian), R rows of
-// 8..16 (7 + C, C of 1..9).  Returns cudaGetLastError() (0 on success).
-int splatpu_route_pairs(const void* d_rows, const void* pos_of_slot,
-                        const void* offsets, const void* counts, void* d_table,
-                        int V, int N, int P, int R, void* stream) {
-  if (V < 1 || N < 1 || P < 1 || R < MIN_REC || R > MAX_REC)
+// Launches the routing on `stream`: one thread per (view, Gaussian, row), R
+// rows of 8..16 (7 + C, C of 1..9); the slot map is (V, S), S == P unless
+// `padded`.  Returns cudaGetLastError() (0 on success).
+int splatpu_route_pairs(const void* d_rows, const void* slot_map, const void* offsets,
+                        const void* counts, void* d_table, int V, int N, int P, int S, int R,
+                        int padded, void* stream) {
+  if (V < 1 || N < 1 || P < 1 || S < 1 || R < MIN_REC || R > MAX_REC || (!padded && S != P))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long items = static_cast<long long>(V) * N;
-  const long long blocks = (items + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
+  const long long total = static_cast<long long>(V) * N * R;
+  const long long blocks = (total + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks));
   const auto s = static_cast<cudaStream_t>(stream);
   const auto rows = static_cast<const float*>(d_rows);
-  const auto pos = static_cast<const int*>(pos_of_slot);
+  const auto map = static_cast<const int*>(slot_map);
   const auto off = static_cast<const int*>(offsets);
   const auto cnt = static_cast<const int*>(counts);
   const auto out = static_cast<float*>(d_table);
-#define SPLATPU_LAUNCH(NR)                                                                   \
-  case NR:                                                                                   \
-    route_pairs_kernel<NR><<<grid, WARPS_PER_BLOCK * 32, 0, s>>>(rows, pos, off, cnt, out, V, \
-                                                                 N, P);                      \
+#define SPLATPU_LAUNCH(NR)                                                                     \
+  case NR:                                                                                     \
+    if (padded)                                                                                \
+      route_pairs_kernel<NR, true><<<grid, THREADS, 0, s>>>(rows, map, off, cnt, out, total, N, \
+                                                             P, S);                            \
+    else                                                                                       \
+      route_pairs_kernel<NR, false><<<grid, THREADS, 0, s>>>(rows, map, off, cnt, out, total,  \
+                                                              N, P, S);                        \
     break;
   switch (R) {
     SPLATPU_LAUNCH(8) SPLATPU_LAUNCH(9) SPLATPU_LAUNCH(10) SPLATPU_LAUNCH(11) SPLATPU_LAUNCH(12)

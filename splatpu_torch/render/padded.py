@@ -4,11 +4,12 @@
 
 K5 replaces the TPU kernels ``pallas_composite.py::_fwd_kernel`` and
 ``_bwd_kernel`` (via ``_composite_fwd_call`` / ``_composite_bwd_call``):
-``csrc/padded_fwd.cu`` and ``csrc/padded_bwd.cu``, one block of 256
-threads per (tile, view), one thread per pixel, records gathered per pair
-before the call, segments tested by ``pos < end`` only.  What K5 computes
-differently from the table composites (K1/K2, K4) follows its TPU kernel:
-absolute pixel coordinates, and an opacity row of sum(exp(power) * dalpha).
+``csrc/padded_fwd.cu`` and ``csrc/padded_bwd.cu``, one block per (tile,
+view) (the forward 256 threads of one pixel each, the backward 64 of four),
+records gathered per pair before the call, segments tested by ``pos <
+end`` only.  What K5 computes differently from the table composites (K1/K2,
+K4) follows its TPU kernel: absolute pixel coordinates, and an opacity row
+of sum(exp(power) * dalpha).
 Like them, it is bound by its FP32 arithmetic on the H100.
 
 - ``padded_fwd_cuda`` / ``padded_fwd_plain``: records (V, Pp, 7 + C)
@@ -21,16 +22,16 @@ Like them, it is bound by its FP32 arithmetic on the H100.
 ``CompositeG`` mirrors the ``_composite_g`` custom VJP: the forward
 gathers the records by ``gid`` outside the kernel; the backward routes the
 per-pair rows back to per-Gaussian rows through ``q_of_slot``, the
-emission offsets and counts, with the routing kernel on the card (its plain
-version on the CPU).  One divergence from the JAX package: on an
-overflowed render, JAX clips the slots past ``max_pairs`` to the last slot
-and adds that slot's row once for each (``pallas_composite.py:511-513``);
-the port drops them, so a Gaussian's gradient sums only its kept pairs.
+emission offsets and counts, with the routing kernel in its padded slot
+mode on the card (its plain version on the CPU).  As in the JAX package
+(``pallas_composite.py:507-513``), on an overflowed render every slot past
+``max_pairs`` reads the last slot's row, once for each such slot.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -154,20 +155,12 @@ def padded_bwd_plain(records, start, end, bg, tfinal, last, g_img, g_depth, g_tf
                     width=width, height=height, padded=True, chunk=chunk)
 
 
-# impl -> (forward composite, backward composite, routing)
+# impl -> (forward composite, backward composite, routing in its padded mode)
 KERNELS = {
-    "cuda": (padded_fwd_cuda, padded_bwd_cuda, route_pairs_cuda),
-    "plain": (padded_fwd_plain, padded_bwd_plain, route_pairs_plain),
+    "cuda": (padded_fwd_cuda, padded_bwd_cuda, functools.partial(route_pairs_cuda, padded=True)),
+    "plain": (padded_fwd_plain, padded_bwd_plain,
+              functools.partial(route_pairs_plain, padded=True)),
 }
-
-
-def routing_slots(q_of_slot: torch.Tensor, pp: int) -> torch.Tensor:
-    """(V, max_pairs) emission slot -> padded position, padded with the
-    sentinel ``pp`` to the routing's (V, Pp): slots past the budget route
-    nothing."""
-    v, mp = q_of_slot.shape
-    pad = torch.full((v, pp - mp), pp, dtype=torch.int32, device=q_of_slot.device)
-    return torch.cat([q_of_slot, pad], dim=1).contiguous()
 
 
 class CompositeG(torch.autograd.Function):
@@ -177,12 +170,12 @@ class CompositeG(torch.autograd.Function):
     and the int32 last padded position (not differentiable)."""
 
     @staticmethod
-    def forward(ctx, table, bg, gid, start, end, pos_of_slot, offsets, counts, geometry, impl):
+    def forward(ctx, table, bg, gid, start, end, q_of_slot, offsets, counts, geometry, impl):
         fwd = KERNELS[impl][0]
         rows = torch.arange(table.shape[0], device=table.device)[:, None]
         records = table[rows, gid.long()].contiguous()
         image, depth, tfin, last = fwd(records, start, end, bg, **geometry)
-        ctx.save_for_backward(records, bg, start, end, pos_of_slot, offsets, counts, tfin, last)
+        ctx.save_for_backward(records, bg, start, end, q_of_slot, offsets, counts, tfin, last)
         ctx.geometry = geometry
         ctx.impl = impl
         ctx.mark_non_differentiable(last)
@@ -190,11 +183,11 @@ class CompositeG(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_img, g_depth, g_tf, _g_last):
-        records, bg, start, end, pos_of_slot, offsets, counts, tfin, last = ctx.saved_tensors
+        records, bg, start, end, q_of_slot, offsets, counts, tfin, last = ctx.saved_tensors
         _, bwd, route = KERNELS[ctx.impl]
         rows = bwd(records, start, end, bg, tfin, last, g_img.contiguous(),
                    g_depth.contiguous(), g_tf.contiguous(), **ctx.geometry)
-        d_table = route(rows, pos_of_slot, offsets, counts)
+        d_table = route(rows, q_of_slot, offsets, counts)
         d_bg = (g_img * tfin[:, None]).sum(dim=(0, 2, 3))
         return d_table, d_bg, None, None, None, None, None, None, None, None
 
@@ -224,8 +217,7 @@ def composite_stream(streams: list[PairStream], camera: Camera, config: BinningC
     gid = torch.stack([s.gid for s in streams])
     stack = lambda f: torch.stack([getattr(s, f) for s in streams])  # noqa: E731
     image, depth, tfin, last = CompositeG.apply(
-        table, bg, gid, stack("start"), stack("end"),
-        routing_slots(stack("q_of_slot"), gid.shape[1]), stack("emit_offsets"),
+        table, bg, gid, stack("start"), stack("end"), stack("q_of_slot"), stack("emit_offsets"),
         stack("emit_counts"),
         dict(tiles_x=tiles_x, tiles_y=tiles_y, width=camera.width, height=camera.height), impl,
     )

@@ -6,7 +6,10 @@
   (48x32, tiles 16 and 32), scaled by the reference's largest gradient,
   atol 1e-4 (the tolerance of test_render_exact.py's gradient tests);
 - pos_of_slot_of: identical integers;
-- the plain routing against the JAX package's _route_to_table;
+- the plain routing against the JAX package's _route_to_table, and in its
+  padded mode against a numpy transcription of the padded stream's routing
+  (pallas_composite.py:507-520) on seeded slot maps with slots past the
+  budget;
 - the routing's per-Gaussian sums against _cumsum_pairs_pallas (interpret
   mode) on an (R, 2 * 2048) block.
 """
@@ -152,6 +155,40 @@ def test_routing_matches_jax(tile, max_pairs, channels):
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
 
 
+def jax_padded_routing(rows, q_of_slot, offsets, counts, span):
+    """pallas_composite.py:507-520 in numpy: (Pp, R) rows in padded order ->
+    (N, R), each Gaussian's window of ``span`` slots from its offset,
+    clipped into the slot map and masked by its count."""
+    grads_slots = rows.T[:, q_of_slot]  # (NREC, max_pairs)
+    slot_idx = offsets[:, None] + np.arange(span, dtype=np.int32)[None, :]  # (N, S)
+    slot_idx = np.clip(slot_idx, 0, q_of_slot.shape[0] - 1)
+    mask = np.arange(span, dtype=np.int32)[None, :] < counts[:, None]
+    return np.stack([np.sum(np.where(mask, row[slot_idx], 0.0), axis=1) for row in grads_slots],
+                    axis=1)
+
+
+@pytest.mark.parametrize("seed,channels", [(0, 1), (1, 3), (2, 9)])
+def test_padded_routing_matches_jax(seed, channels):
+    # Two views of random rows, slot maps, offsets and counts (ranges that
+    # overlap, and that reach past max_pairs, where JAX clips each slot to
+    # the last one).
+    rng = np.random.default_rng(seed)
+    views, pp, max_pairs, n, span = 2, 300, 96, 40, 16
+    r = 7 + channels
+    rows = rng.normal(size=(views, pp, r)).astype(np.float32)
+    q_of_slot = rng.integers(0, pp, size=(views, max_pairs)).astype(np.int32)
+    counts = rng.integers(0, span + 1, size=(views, n)).astype(np.int32)
+    offsets = rng.integers(0, max_pairs + 8, size=(views, n)).astype(np.int32)
+    assert (offsets + counts > max_pairs).sum() >= 5 and (offsets >= max_pairs).any()
+    got = route_pairs_plain(torch.from_numpy(rows), torch.from_numpy(q_of_slot),
+                            torch.from_numpy(offsets), torch.from_numpy(counts),
+                            padded=True).numpy()
+    assert got.shape == (views, n, r)
+    for v in range(views):
+        ref = jax_padded_routing(rows[v], q_of_slot[v], offsets[v], counts[v], span)
+        np.testing.assert_allclose(got[v], ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
 def test_routing_matches_pallas_cumsum():
     # The TPU kernel (interpret mode here) is an inclusive cumsum carried
     # across 2048-column blocks; its consumer takes each Gaussian's boundary
@@ -173,3 +210,17 @@ def test_routing_matches_pallas_cumsum():
         torch.from_numpy(offsets)[None], torch.from_numpy(counts)[None],
     )[0].numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=2.0**-14 * np.abs(csum).max())
+
+
+@pytest.mark.parametrize("grad_enabled", [True, False])
+def test_cuda_backward_tile_refused_before_render(grad_enabled):
+    """A differentiable render through the CUDA kernels at a tile the
+    backward body does not take (8 px) is refused before it bins; without
+    gradients it goes on to the forward kernel's wrapper, which refuses CPU
+    tensors."""
+    c = torch_cloud(np_cloud(0, 48))
+    args = tt.activate_cloud(c.replace(means=c.means.clone().requires_grad_(True)))
+    cam = tt.stack_cameras([torch_camera(*np_lookat(EYE, W, H), W, H)])
+    match = "backward composite takes" if grad_enabled else "CUDA tensors only"
+    with torch.set_grad_enabled(grad_enabled), pytest.raises(ValueError, match=match):
+        render(args, cam, bg=torch.from_numpy(BG), impl="cuda", config=BinningConfig(**cfg(8)))

@@ -1,6 +1,9 @@
 """The CUDA composite kernels (K1/K2, K4 under kernel="manual", K5 of the
 padded path; forward and backward) and the routing kernel against their
-plain PyTorch versions, on the card.
+plain PyTorch versions, on the card: the backward body at 16 and 32 px
+tiles, 1 to 9 channels and image sizes that cut the last tiles; the
+routing in both slot modes, 8 to 16 rows, slot runs up to 512, dropped and
+clipped slots; each bitwise identical across two launches.
 
 Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere.  Imports nothing of
 JAX, so it runs on a machine without it:
@@ -18,6 +21,7 @@ import splatpu_torch.core.types as tt
 import splatpu_torch.render.composite as composite
 from splatpu_torch.render.binning import BinningConfig
 from splatpu_torch.render.exact import composite_inputs
+from splatpu_torch.tools.measure import row_scaled_err
 
 pytestmark = pytest.mark.gpu
 
@@ -255,3 +259,110 @@ def test_new_path_gradients_cuda_match_plain(cuda, impls, kernel):
     for f, g in grads[impls[0]].items():
         assert torch.isfinite(g).all(), f
         assert scaled_err(g, grads[impls[1]][f]) <= 1e-4, f
+
+
+def routing_case(padded, r, seed, device):
+    """Two views of 3,000 Gaussians with contiguous slot ranges, mostly 0-8
+    slots, a few runs of 100-512; rows (V, P, R) and the slot map.  Exact:
+    P = 90% of the slots, so the last ranges run past P, and one slot in
+    ten maps to P (dropped by the sort).  Padded: S = 80% of the slots, so
+    the last ranges are clipped to slot S - 1, and P = 1.5 S positions."""
+    rng = np.random.default_rng(seed)
+    v, n = 2, 3000
+    counts = rng.integers(0, 9, size=(v, n))
+    long = rng.choice(n, size=(v, 6), replace=False)
+    for i in range(v):
+        counts[i, long[i]] = [512, 511, 300, 200, 129, 100]
+    offsets = np.cumsum(counts, axis=1) - counts
+    total = int(counts.sum(axis=1).min())
+    if padded:
+        s_len = int(0.8 * total)
+        p = int(1.5 * s_len)
+        slot_map = rng.integers(0, p, size=(v, s_len))
+    else:
+        p = s_len = int(0.9 * total)
+        slot_map = np.stack([rng.permutation(p) for _ in range(v)])
+        slot_map[rng.random((v, p)) < 0.1] = p
+    t = lambda a, dt: torch.tensor(np.asarray(a), dtype=dt, device=device)  # noqa: E731
+    return (t(rng.normal(size=(v, p, r)), torch.float32), t(slot_map, torch.int32),
+            t(offsets, torch.int32), t(counts, torch.int32))
+
+
+@pytest.mark.parametrize("padded", [False, True], ids=["exact", "padded"])
+@pytest.mark.parametrize("r", [8, 10, 16])
+def test_routing_modes_match_plain(cuda, padded, r):
+    import splatpu_torch.render.route as route
+
+    rows, slot_map, offsets, counts = routing_case(padded, r, r + 100 * padded, cuda)
+    before = route.LAUNCHES
+    got = route.route_pairs_cuda(rows, slot_map, offsets, counts, padded=padded)
+    again = route.route_pairs_cuda(rows, slot_map, offsets, counts, padded=padded)
+    torch.cuda.synchronize()
+    assert route.LAUNCHES == before + 2
+    ref = route.route_pairs_plain(rows, slot_map, offsets, counts, padded=padded)
+    assert got.shape == (2, 3000, r) and torch.isfinite(got).all()
+    assert row_scaled_err(got, ref) <= 1e-5
+    assert torch.equal(got, again)
+    # Long runs inside the slot map were summed, and slots run past it.
+    ends = offsets.long() + counts.long()
+    long_inside = (counts >= 100) & (ends <= slot_map.shape[1])
+    assert bool(long_inside.any()) and bool((got[long_inside] != 0).all())
+    assert bool((ends > slot_map.shape[1]).any())
+
+
+BWD_CASES = [("composite_bwd", 16, c) for c in (1, 3, 5)] + [
+    ("composite_bwd", 32, c) for c in (1, 3, 5)] + [
+    ("composite_manual_bwd", t, c) for t in (16, 32) for c in (1, 3, 5, 9)] + [
+    ("padded_bwd", 16, c) for c in (1, 3, 5, 9)]
+
+
+@pytest.mark.parametrize("kernel,tile,channels", BWD_CASES)
+def test_backward_body_matches_plain(cuda, kernel, tile, channels):
+    """Each backward kernel against its plain version on 100x70 images
+    (neither tile size divides them), rows 1e-4 scaled per row, bitwise
+    identical across two launches."""
+    import splatpu_torch.render.padded as padded
+    from splatpu_torch.render.binning import build_pair_stream
+    from splatpu_torch.render.composite import pack_table
+
+    rng = np.random.default_rng(tile * 10 + channels)
+    args, cams = scene(tile + channels, 2500, 2, 100, 70, 3, cuda)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda)  # noqa: E731
+    # Means spread across the whole image, so the cut tiles hold pairs.
+    spread = torch.tensor([2.5, 2.0, 1.0], device=cuda)
+    args = tt.RenderArgs(args.means3d * spread, t(rng.uniform(0, 1, (args.n, channels))),
+                         args.rotations, args.opacities, args.scales)
+    v, h, w = cams.num_views, cams.height, cams.width
+    cot = (t(rng.normal(size=(v, channels, h, w))), t(rng.normal(size=(v, h, w))),
+           t(rng.normal(size=(v, h, w))))
+    bg = torch.linspace(0.1, 0.3, channels, device=cuda)
+    if kernel == "padded_bwd":
+        cfg = BinningConfig(tile=16, max_span=256, max_pairs=1 << 17, chunk_pairs=128)
+        streams = [build_pair_stream(args, cams.view(i), cfg) for i in range(v)]
+        records = torch.stack([
+            pack_table(s.splats.mean2d, s.splats.conic, s.g_opacity, s.splats.depth, s.g_colors)
+            [s.gid.long()] for s in streams]).contiguous()
+        kin = (records, torch.stack([s.start for s in streams]),
+               torch.stack([s.end for s in streams]), bg)
+        geo = dict(tiles_x=-(-w // 16), tiles_y=-(-h // 16), width=w, height=h)
+        fwd, bwd, bwd_plain = padded.padded_fwd_cuda, padded.padded_bwd_cuda, padded.padded_bwd_plain
+    else:
+        cfg = BinningConfig(tile=tile, max_span=256, max_pairs=1 << 18, chunk_pairs=256)
+        _, k = composite_inputs(args, cams, cfg)
+        kin, geo = (k["table"], k["gid"], k["start"], k["end"], bg), k["geometry"]
+        fwd = (composite.composite_fwd_cuda if kernel == "composite_bwd"
+               else composite.composite_manual_fwd_cuda)
+        bwd = getattr(composite, f"{kernel}_cuda")
+        bwd_plain = getattr(composite, f"{kernel}_plain")
+    _, _, tfin, last = fwd(*kin, **geo)
+    rows = bwd(*kin, tfin, last, *cot, **geo)
+    again = bwd(*kin, tfin, last, *cot, **geo)
+    torch.cuda.synchronize()
+    ref = bwd_plain(*kin, tfin, last, *cot, **geo)
+    assert rows.shape == ref.shape and rows.shape[-1] == 7 + channels
+    assert torch.isfinite(rows).all() and bool((rows.abs().amax((0, 1)) > 0).all())
+    assert row_scaled_err(rows, ref) <= 1e-4
+    assert torch.equal(rows, again)
+    # The pixels of the cut tiles reach the rows: the last tile column and
+    # row of the image hold live pixels.
+    assert bool((last[:, :, w - 1] >= 0).any()) and bool((last[:, h - 1, :] >= 0).any())
