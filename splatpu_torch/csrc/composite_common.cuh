@@ -14,41 +14,84 @@
 // writes one gradient row per pair.  Each kernel file is a thin
 // instantiation of these bodies.
 //
-// Design.  One block per (tile, view); the TPU's sequential chunk grid
-// becomes a loop inside the block.  Records are staged through shared
-// memory in batches of BATCH pairs.  The forward runs one thread per pixel
-// and leaves its loop once every pixel is done (__syncthreads_count);
-// pixels outside the image start done.  The backward starts at the tile's
-// largest `last`, since pairs behind it have zero gradient, and a warp
-// skips the pairs behind its own largest.  Each backward thread holds 4
-// pixels of one column of the tile, so the dx terms of power are formed
-// once per pair for all four, and their skip tests run without branches
-// (their exp chains overlap) before the live pixels' rows.  A pair belongs
-// to one (tile, view), so one block owns its row; the sum over the tile's
-// pixels is formed in three fixed-order steps: each thread adds its
-// pixels' rows in registers, each warp sums its lanes with a
+// Design, both bodies.  Blocks per (tile, view); the TPU's sequential
+// chunk grid becomes a loop inside the block.  Each thread holds several
+// pixels of one column of the tile, so per pair the dx terms of power
+// (a dx^2 and b dx) are formed once for all of them, and their power, exp
+// and skip tests run without branches, so the pixels' exp chains overlap;
+// the live pixels' updates follow in pixel order.  Records are staged
+// through double-buffered shared memory in batches of 32 pairs: the next
+// batch's values, and for kExact the gid of the batch after it, load into
+// registers while the current batch is walked.  No atomics: two launches
+// give bitwise-identical outputs.  The channel count C and the tile are
+// template parameters, so a 3-channel launch keeps 3 accumulators per pixel
+// in registers.  Every offset into gid, the records and the outputs is
+// size_t: V * P * REC passes 2^31 above 2^24 pairs.
+//
+// Forward.  2 pixels per thread in consecutive rows of one column, 8 x 8
+// pixels per warp, one block per 16 px square of a tile (a 32 px tile is
+// four blocks that walk the same segment) or per 8 or 24 px tile.  Per
+// batch each warp keeps only the pairs whose alpha >= 1/255 ellipse can
+// reach its 8 x 8 pixels (lane j tests pair j, one ballot), so a warp walks
+// the pairs near it, not the whole tile's.  A thread keeps its pixels' T,
+// colour, depth, `last` and done flags in registers and leaves a batch
+// once both its pixels are done; the block leaves its loop at the batch's
+// one barrier (__syncthreads_count) once every thread is done.  Pixels
+// outside the image start done and write nothing.  The staged rows are
+// padded to a multiple of 4 floats, so a pair's geometry is one 16-byte
+// and one 8-byte shared load, broadcast to the warp.
+//
+// Backward.  4 pixels per thread at 16 and 32 px tiles (one column, rows
+// ROWS apart).  It starts at the tile's largest `last`, since pairs behind
+// it have zero gradient, and a warp skips the pairs behind its own largest.
+// A pair belongs to one (tile, view), so one block owns its row; the sum
+// over the tile's pixels is formed in three fixed-order steps: each thread
+// adds its pixels' rows in registers, each warp sums its lanes with a
 // reduce-scatter of shuffles (skipped when no lane is live) whose lanes
 // park one row each in shared memory, and after each batch the block adds
-// its warps' sums and writes each row once.  The next batch's records load
-// into registers while the current one is walked.  No atomics: two runs
-// give bitwise-identical rows.  The channel count C is a template
-// parameter, so a 3-channel launch keeps 3 accumulators in registers.
-// Every offset into gid, the records and the outputs is size_t: V * P *
-// REC passes 2^31 above 2^24 pairs.
+// its warps' sums and writes each row once.
 //
-// The forward and backward of a kernel must see exactly the same pairs: the
-// backward starts each pixel at the forward's `last` and rebuilds T by
-// division.  So power is rounded op by op in the reference's order (no FMA
+// The forward, the backward and the plain PyTorch versions must see exactly
+// the same pairs: the backward starts each pixel at the forward's `last`
+// and rebuilds T by division, and `last` is held identical to the plain
+// version's.  So power is rounded op by op in the reference's order (no FMA
 // contraction): far from an elongated splat's centre the terms are large
-// and cancel, and a contracted form moves alpha by ~1e-5; this way the
-// kernels and their plain PyTorch versions compute the same power.
+// and cancel, and a contracted form moves alpha by ~1e-5.  And the forward
+// carries T in float64 and stops where T (1 - alpha) < 1e-4 in float64, as
+// the plain version does: a float32 T drifts by up to ~1e-6 relative over a
+// pixel's contributions, enough to put a pixel now and then on the other
+// side of 1e-4 (at the served 5 x 1280x720 frame one pixel went on at
+// T (1 - alpha) = 1.000000047e-4 in float32 where the plain version's
+// float64 9.999999862e-5 stopped; PERF.md section 6).  The weights alpha T
+// take T rounded to float32.
 //
 // What bounds them.  Per evaluated (pixel, pair) ~16 FP32 operations and
 // one exp forward (~20 backward), per contribution 4 + 2 (C + 1) more
 // forward (a division and ~30 + 4C backward); the bytes are one record row
 // per pair per block, the per-pixel inputs and the outputs.  So the FP32
-// pipes bound them on the H100.  The backward's sums over the pixels cost,
-// per (block, pair) at C = 3 (10 rows), with a live lane in every warp:
+// pipes bound them on the H100.  The forward, reckoned from the code, per
+// pair a warp walks:
+//   one pixel per thread, 1,024-thread blocks at 32 px (before): per
+//     pixel 6 shared loads, dx and dy, power (9 ops), exp (~8), alpha (2),
+//     two tests that branch and the loop: ~34 instructions; every warp
+//     walks the tile's whole segment until its pixels are done;
+//   2 pixels per thread (now): per pair 2 shared loads, dx, a dx^2, b dx,
+//     the loop and the any-live and all-done tests (~14, shared by the 2
+//     pixels), per pixel dy, power (6), exp, alpha and three tests without
+//     branches (~20): ~27 per pixel, and a warp walks only the pairs that
+//     can reach its 8 x 8 pixels, for ~1.3 instructions per pair and lane
+//     spent on the cull test (a log, two square roots, a division).
+// The cull took a 4-pixels-per-thread body from 1.55 to 0.93 ms per
+// served 5 x 1280x720 launch; 2 pixels per thread in 8 x 8 warps 0.76, and
+// the 32 px tile cut into four 16 px blocks, so that none waits at the
+// batch barrier for pixels of another square, 0.65 (PERF.md section 6).
+// What holds it above its FP32 bound is not measured (the card's machine
+// has no ncu): ptxas gives 76 registers and no spill at C = 3; of the
+// instructions issued, those of done or culled pixels in a live warp, the
+// float64 T (a float32 T ran 7% faster, but moved `last`) and the batch
+// barriers are the candidates.
+// The backward's sums over the pixels cost, per (block, pair) at C = 3 (10
+// rows), with a live lane in every warp:
 //   one pixel per thread and a butterfly per row (before): 32 px tiles,
 //     32 warps x 50 shuffles = 1,600 shuffles and 320 single-lane shared
 //     stores, then 32 shared loads per (pair, row); 16 px tiles 400 and
@@ -56,10 +99,10 @@
 //   4 pixels per thread and a reduce-scatter (now): 32 px tiles, 8 warps x
 //     12 shuffles = 96 and 8 shared stores, then 8 loads per (pair, row);
 //     16 px tiles 2 x 12 = 24 and 2, then 2 loads.
-// What is left is the walk's own instruction stream (the tests, exp and
-// the live pixels' two divisions, issued for a warp whenever one of its
-// lanes needs them) and the block's two barriers per batch; PERF.md
-// section 6 holds the measured times.
+// What is left is the walk's own instruction stream (the tests, exp and,
+// for the live pixels, the updates, issued for a warp whenever one of its
+// lanes needs them) and the block's barriers per batch; PERF.md section 6
+// holds the measured times.
 
 #pragma once
 
@@ -72,7 +115,7 @@ namespace splatpu {
 constexpr int REC_GEOM = 7;          // mx, my, ca, cb, cc, op, depth
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float T_EPS = 1e-4f;
+constexpr double T_EPS = 1e-4;     // against the float64 T, as the plain versions
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // The two families of TPU composite kernels.
@@ -93,7 +136,7 @@ struct Walk {                 // what both bodies read
   const int* start;           // (V, T) segment starts
   const int* end;             // (V, T) segment ends
   const float* bg;            // (C,)
-  int N, P, tiles_x, num_tiles, tile, width, height;
+  int N, P, tiles_x, num_tiles, width, height;
 };
 
 struct FwdOut {
@@ -120,11 +163,6 @@ __device__ __forceinline__ float pair_power_dy(float adx2, float bdx, float cc, 
   return __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(bdx, dy));
 }
 
-__device__ __forceinline__ float pair_power(float ca, float cb, float cc, float dx,
-                                            float dy) {
-  return pair_power_dy(__fmul_rn(__fmul_rn(ca, dx), dx), __fmul_rn(cb, dx), cc, dy);
-}
-
 // Block-wide max of `x` through one shared int (initialised here); every
 // thread of the block must call it.
 __device__ __forceinline__ int block_max(int x, int* s_slot) {
@@ -137,113 +175,273 @@ __device__ __forceinline__ int block_max(int x, int* s_slot) {
   return *s_slot;
 }
 
-// This thread's pixel in block (tile blockIdx.x, view blockIdx.y), in the
-// family's frame: the records' means are staged minus (ox, oy), and the
-// pixel sits at (fx, fy) in that frame.
-struct Pixel {
-  int px, py;
-  bool inside;
-  float ox, oy, fx, fy;
-  size_t local;               // py * width + px
-};
-
-template <Family F>
-__device__ __forceinline__ Pixel pixel_of(const Walk& w) {
-  const int t = blockIdx.x;
-  const int x0 = (t % w.tiles_x) * w.tile;
-  const int y0 = (t / w.tiles_x) * w.tile;
-  Pixel p;
-  p.px = x0 + threadIdx.x % w.tile;
-  p.py = y0 + threadIdx.x / w.tile;
-  p.inside = p.px < w.width && p.py < w.height;
-  const int fx0 = F == Family::kExact ? x0 : 0;
-  const int fy0 = F == Family::kExact ? y0 : 0;
-  p.ox = static_cast<float>(fx0);
-  p.oy = static_cast<float>(fy0);
-  p.fx = static_cast<float>(p.px - fx0);
-  p.fy = static_cast<float>(p.py - fy0);
-  p.local = static_cast<size_t>(p.py) * w.width + p.px;
-  return p;
-}
-
-// Stages the records of positions [base + j_lo, base + j_hi) into columns
-// j_lo..j_hi of s_rec, adjacent threads reading adjacent floats of a row.
-template <Family F, int REC, int BATCH>
-__device__ __forceinline__ void stage(float (&s_rec)[REC][BATCH], const Walk& w, int v,
-                                      int base, int j_lo, int j_hi, const Pixel& p) {
-  const size_t rows = F == Family::kExact ? w.N : w.P;
-  const float* rec_v = w.rec + static_cast<size_t>(v) * rows * REC;
-  for (int idx = j_lo * REC + threadIdx.x; idx < j_hi * REC; idx += blockDim.x) {
-    const int j = idx / REC;
-    const int r = idx - j * REC;
-    const size_t row = F == Family::kExact
-                           ? static_cast<size_t>(w.gid[static_cast<size_t>(v) * w.P + base + j])
-                           : static_cast<size_t>(base + j);
-    const float x = rec_v[row * REC + r];
-    s_rec[r][j] = r == 0 ? x - p.ox : (r == 1 ? x - p.oy : x);
+// The staging of both bodies, one batch ahead of the walk: value e = t + m
+// NT of a batch of n pairs at [base, base + n) is row e % REC of pair
+// e / REC.  stage_sources loads each value's record index (kExact: its gid,
+// a batch earlier still, so the gather never waits on it); stage_values
+// loads the values; stage_store writes them to shared memory rows of S
+// floats (the backward's S = REC: flat in (pair, row)).
+template <Family F, int REC, int NT, int PER>
+__device__ __forceinline__ void stage_sources(int (&src)[PER], const Walk& w, int v, int base,
+                                              int n) {
+#pragma unroll
+  for (int m = 0; m < PER; ++m) {
+    const int e = static_cast<int>(threadIdx.x) + m * NT;
+    const int j = e / REC;
+    src[m] = 0;
+    if (e < n * REC)
+      src[m] = F == Family::kExact ? w.gid[static_cast<size_t>(v) * w.P + base + j] : base + j;
   }
 }
 
-// Forward composite of block (tile, view).  ALIGN stages chunks aligned to
-// BATCH from start / BATCH, leaving out the neighbouring tiles' pairs in the
-// first and last chunk, as the manual TPU kernel's chunk DMA does.
-template <int C, Family F, int BATCH, bool ALIGN>
+template <Family F, int REC, int NT, int PER>
+__device__ __forceinline__ void stage_values(float (&val)[PER], const int (&src)[PER],
+                                             const Walk& w, int v, int n, float ox, float oy) {
+  const size_t rows = F == Family::kExact ? w.N : w.P;
+  const float* rec_v = w.rec + static_cast<size_t>(v) * rows * REC;
+#pragma unroll
+  for (int m = 0; m < PER; ++m) {
+    const int e = static_cast<int>(threadIdx.x) + m * NT;
+    const int r = e % REC;
+    if (e < n * REC) {
+      const float x = rec_v[static_cast<size_t>(src[m]) * REC + r];
+      val[m] = r == 0 ? x - ox : (r == 1 ? x - oy : x);
+    }
+  }
+}
+
+template <int REC, int NT, int PER, int BATCH, int S>
+__device__ __forceinline__ void stage_store(float (&s)[BATCH][S], const float (&val)[PER],
+                                            int n) {
+#pragma unroll
+  for (int m = 0; m < PER; ++m) {
+    const int e = static_cast<int>(threadIdx.x) + m * NT;
+    if (e >= n * REC) continue;
+    if constexpr (S == REC)
+      (&s[0][0])[e] = val[m];
+    else
+      s[e / REC][e % REC] = val[m];
+  }
+}
+
+// The forward's launch shape.  A block holds a fwd_side(TILE)-px square
+// of its tile (a 32 px tile is 4 blocks of 16 px that walk the same
+// segment, so each leaves as soon as its own pixels are done), each thread
+// FWD_PIX pixels in consecutive rows of one column, each warp an 8 x 8
+// pixel square (FWD_WARP_W columns by 32 / FWD_WARP_W threads' rows).
+// FWD_BATCH pairs per shared-memory batch, one per lane.  Blocks per SM the
+// registers must leave room for (launch bounds): 768 threads up to 5
+// channels, which caps a thread at 85 registers; 512, so 128 registers,
+// for the 6- to 9-channel state.  The staged rows are fwd_stride(REC)
+// floats, REC rounded up to a multiple of 4.
+constexpr int FWD_BATCH = 32;
+constexpr int FWD_PIX = 2;
+constexpr int FWD_WARP_W = 8;
+__host__ __device__ constexpr int fwd_side(int tile) { return tile == 32 ? 16 : tile; }
+__host__ __device__ constexpr int fwd_blocks_per_tile(int tile) {
+  return (tile / fwd_side(tile)) * (tile / fwd_side(tile));
+}
+__host__ __device__ constexpr int fwd_threads(int tile) {
+  return fwd_side(tile) * fwd_side(tile) / FWD_PIX;
+}
+__host__ __device__ constexpr int fwd_min_blocks(int tile, int c) {
+  return (c <= 5 ? 768 : 512) / fwd_threads(tile);
+}
+__host__ __device__ constexpr int fwd_stride(int rec) { return (rec + 3) / 4 * 4; }
+
+// The tiles each body takes: the forward those of JAX's exact kernels up
+// to 32 px, the backward 16 and 32.  with_tile calls
+// fn(std::integral_constant<int, TILE>{}) for the TILE of the set that
+// equals `tile`; false if none does.
+using FwdTiles = std::integer_sequence<int, 8, 16, 24, 32>;
+using BwdTiles = std::integer_sequence<int, 16, 32>;
+template <int... TILES, typename Fn>
+bool with_tile(std::integer_sequence<int, TILES...>, int tile, Fn&& fn) {
+  return ((tile == TILES ? (fn(std::integral_constant<int, TILES>{}), true) : false) || ...);
+}
+
+// Whether the pair (means mx, my, conic ca cb cc, opacity op) can pass the
+// skip tests at some pixel of the box [bx0, bx1] x [by0, by1]; false only
+// where it provably cannot.  alpha >= 1/255 needs Q = a dx^2 + 2 b dx dy +
+// c dy^2 <= tau = 2 ln(255 op), an ellipse whose bounding box has the half
+// widths sqrt(tau c / det) and sqrt(tau a / det); tau is widened to 1.05
+// tau + 1, which covers the rounding of the pixels' power wherever the box's
+// terms a dx^2 + c dy^2 + 2 |b dx dy| stay below 1e5 (an error below 0.05
+// in Q) and det is not cancelled (det > 1e-4 a c).  Any other pair is kept.
+__device__ __forceinline__ bool pair_may_pass(float mx, float my, float ca, float cb, float cc,
+                                              float op, float bx0, float bx1, float by0,
+                                              float by1) {
+  const float det = ca * cc - cb * cb;
+  if (!(ca > 0.0f && cc > 0.0f && det > 1e-4f * ca * cc)) return true;
+  const float tau = fmaxf(2.0f * logf(255.0f * op), 0.0f) * 1.05f + 1.0f;
+  const float hx = sqrtf(tau * cc / det);
+  const float hy = sqrtf(tau * ca / det);
+  if (ca * hx * hx + cc * hy * hy + 2.0f * fabsf(cb) * hx * hy > 1e5f) return true;
+  return !(mx + hx < bx0 || mx - hx > bx1 || my + hy < by0 || my - hy > by1);
+}
+
+// Forward composite of block (tile square, view), fwd_threads(TILE)
+// threads of FWD_PIX pixels each, front to back over the tile's [start,
+// end) pairs.  Per batch each warp first keeps the pairs that can reach its
+// pixels (lane j tests pair j, pair_may_pass, one ballot); per kept pair a
+// thread forms dx, a dx^2 and b dx once, then every pixel's power, alpha
+// and skip tests without branches, then, if one of its pixels is live,
+// their T tests and updates in pixel order.
+template <int C, Family F, int TILE>
 __device__ __forceinline__ void composite_fwd_body(const Walk& w, const FwdOut& out) {
   constexpr int REC = REC_GEOM + C;
-  __shared__ float s_rec[REC][BATCH];
+  constexpr int S = fwd_stride(REC);
+  constexpr int PIX = FWD_PIX;
+  constexpr int SIDE = fwd_side(TILE);
+  constexpr int NT = fwd_threads(TILE);
+  constexpr int BATCH = FWD_BATCH;
+  constexpr int PER = (BATCH * REC + NT - 1) / NT;  // staged values per thread
+  constexpr int WX = FWD_WARP_W;                    // a warp's columns
+  constexpr int WY = 32 / WX;                       // and threads' rows
+  static_assert(BATCH == 32, "one pair of a batch per lane");
+  static_assert(TILE % SIDE == 0 && SIDE % WX == 0 && (SIDE / PIX) % WY == 0,
+                "a block is whole warps that tile its square");
+  __shared__ __align__(16) float s_rec[2][BATCH][S];  // double-buffered records
 
   const int v = blockIdx.y;
-  const Pixel p = pixel_of<F>(w);
-  const size_t vt = static_cast<size_t>(v) * w.num_tiles + blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int tile = static_cast<int>(blockIdx.x) / fwd_blocks_per_tile(TILE);
+  const int square = static_cast<int>(blockIdx.x) % fwd_blocks_per_tile(TILE);
+  const size_t vt = static_cast<size_t>(v) * w.num_tiles + tile;
   const int seg_lo = w.start[vt];
   const int seg_hi = w.end[vt];
 
-  float T = 1.0f;
-  float acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-  float dep = 0.0f;
-  int last = -1;
-  int done = p.inside ? 0 : 1;
+  // This thread's pixels: column wcol + lane % WX and rows wrow + (lane /
+  // WX) PIX + k of the block's square, where the warp's own square starts
+  // at (wcol, wrow); in the family's frame, where the records' means are
+  // staged minus (ox, oy), pixel k sits at (fx, fy + k) and the warp's
+  // pixels in [bx0, bx0 + WX - 1] x [by0, by0 + WY PIX - 1].
+  const int x0 = tile % w.tiles_x * TILE;
+  const int y0 = tile / w.tiles_x * TILE;
+  const int wcol = square % (TILE / SIDE) * SIDE + warp % (SIDE / WX) * WX;
+  const int wrow = square / (TILE / SIDE) * SIDE + warp / (SIDE / WX) * WY * PIX;
+  const int px = x0 + wcol + lane % WX;
+  const int py0 = y0 + wrow + lane / WX * PIX;
+  const int fx0 = F == Family::kExact ? x0 : 0;
+  const int fy0 = F == Family::kExact ? y0 : 0;
+  const float ox = static_cast<float>(fx0);
+  const float oy = static_cast<float>(fy0);
+  const float fx = static_cast<float>(px - fx0);
+  const float fy = static_cast<float>(py0 - fy0);
+  const float bx0 = static_cast<float>(x0 + wcol - fx0);
+  const float by0 = static_cast<float>(y0 + wrow - fy0);
+  const float bx1 = bx0 + static_cast<float>(WX - 1);
+  const float by1 = by0 + static_cast<float>(WY * PIX - 1);
 
-  const int first = ALIGN && seg_hi > seg_lo ? seg_lo / BATCH * BATCH : seg_lo;
-  for (int base = first; base < seg_hi; base += BATCH) {
-    // Barrier for the previous batch's readers, and the block-wide exit.
-    if (__syncthreads_count(done) == static_cast<int>(blockDim.x)) break;
-    const int j_lo = max(seg_lo - base, 0);      // foreign pairs before
-    const int j_hi = min(seg_hi - base, BATCH);  // and after the segment
-    stage<F>(s_rec, w, v, base, j_lo, j_hi, p);
-    __syncthreads();
-    if (done) continue;
-    for (int j = j_lo; j < j_hi; ++j) {
-      const float power =
-          pair_power(s_rec[2][j], s_rec[3][j], s_rec[4][j], p.fx - s_rec[0][j], p.fy - s_rec[1][j]);
-      if (power > 0.0f) continue;
-      const float alpha = fminf(ALPHA_MAX, s_rec[5][j] * expf(power));
-      if (alpha < ALPHA_MIN) continue;
-      const float test_T = T * (1.0f - alpha);
-      if (test_T < T_EPS) {
-        done = 1;
-        break;
-      }
-      const float wt = alpha * T;
+  double T[PIX];
+  float acc[PIX][C], dep[PIX];
+  int last[PIX];
+  bool done[PIX];
+  bool all_done = true;
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] += wt * s_rec[REC_GEOM + c][j];
-      dep += wt * s_rec[6][j];
-      T = test_T;
-      last = base + j;
+  for (int k = 0; k < PIX; ++k) {
+    T[k] = 1.0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[k][c] = 0.0f;
+    dep[k] = 0.0f;
+    last[k] = -1;
+    done[k] = !(px < w.width && py0 + k < w.height);
+    all_done = all_done && done[k];
+  }
+
+  // Batch i covers [seg_lo + i BATCH, min(seg_hi, seg_lo + (i + 1) BATCH)).
+  // `val` holds batch i's records when its iteration starts, `src` batch
+  // i + 1's sources.
+  int src[PER];
+  float val[PER];
+  stage_sources<F, REC, NT>(src, w, v, seg_lo, min(BATCH, seg_hi - seg_lo));
+  stage_values<F, REC, NT>(val, src, w, v, min(BATCH, seg_hi - seg_lo), ox, oy);
+  stage_sources<F, REC, NT>(src, w, v, seg_lo + BATCH, min(BATCH, seg_hi - seg_lo - BATCH));
+
+  int buf = 0;
+  for (int base = seg_lo; base < seg_hi; base += BATCH, buf ^= 1) {
+    const int n = min(BATCH, seg_hi - base);
+    // s_rec[buf] was last read two batches ago, before the previous
+    // batch's barrier.  This barrier publishes the batch and is the
+    // block-wide exit.
+    stage_store<REC, NT>(s_rec[buf], val, n);
+    if (__syncthreads_count(all_done) == NT) break;
+    {
+      const int base1 = base + BATCH, base2 = base1 + BATCH;
+      stage_values<F, REC, NT>(val, src, w, v, min(BATCH, seg_hi - base1), ox, oy);
+      stage_sources<F, REC, NT>(src, w, v, base2, min(BATCH, seg_hi - base2));
+    }
+    if (__all_sync(FULL_MASK, all_done)) continue;
+    unsigned kept;
+    {
+      bool pass = false;
+      if (lane < n) {
+        const float* rec = s_rec[buf][lane];
+        pass = pair_may_pass(rec[0], rec[1], rec[2], rec[3], rec[4], rec[5], bx0, bx1, by0, by1);
+      }
+      kept = __ballot_sync(FULL_MASK, pass);
+    }
+    if (all_done) continue;
+
+    while (kept) {  // the kept pairs in order
+      const int j = __ffs(kept) - 1;
+      kept &= kept - 1;
+      const float* rec = s_rec[buf][j];
+      const float4 g = *reinterpret_cast<const float4*>(rec);      // mx, my, ca, cb
+      const float2 h = *reinterpret_cast<const float2*>(rec + 4);  // cc, op
+      const float dx = fx - g.x;
+      const float adx2 = __fmul_rn(__fmul_rn(g.z, dx), dx);
+      const float bdx = __fmul_rn(g.w, dx);
+      float alpha[PIX];
+      bool live[PIX];
+      bool any = false;
+#pragma unroll
+      for (int k = 0; k < PIX; ++k) {
+        const float power = pair_power_dy(adx2, bdx, h.x, (fy + static_cast<float>(k)) - g.y);
+        alpha[k] = fminf(ALPHA_MAX, h.y * expf(power));
+        live[k] = !done[k] && !(power > 0.0f) && !(alpha[k] < ALPHA_MIN);
+        any = any || live[k];
+      }
+      if (!any) continue;
+#pragma unroll
+      for (int k = 0; k < PIX; ++k) {
+        if (!live[k]) continue;
+        const double test_T = T[k] * static_cast<double>(1.0f - alpha[k]);
+        if (test_T < T_EPS) {  // the first failing pair stops the pixel
+          done[k] = true;
+          continue;
+        }
+        const float wt = alpha[k] * static_cast<float>(T[k]);
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[k][c] += wt * rec[REC_GEOM + c];
+        dep[k] += wt * rec[6];
+        T[k] = test_T;
+        last[k] = base + j;
+      }
+      all_done = true;
+#pragma unroll
+      for (int k = 0; k < PIX; ++k) all_done = all_done && done[k];
+      if (all_done) break;
     }
   }
 
-  if (!p.inside) return;
   const size_t hw = static_cast<size_t>(w.width) * w.height;
-  const size_t pix = static_cast<size_t>(v) * hw + p.local;
 #pragma unroll
-  for (int c = 0; c < C; ++c)
-    out.image[(static_cast<size_t>(v) * C + c) * hw + p.local] = acc[c] + T * w.bg[c];
-  out.depth[pix] = dep;
-  out.tfinal[pix] = T;
-  out.last[pix] = last;
+  for (int k = 0; k < PIX; ++k) {
+    const int py = py0 + k;
+    if (px >= w.width || py >= w.height) continue;
+    const size_t local = static_cast<size_t>(py) * w.width + px;
+    const size_t pix = static_cast<size_t>(v) * hw + local;
+    const float t = static_cast<float>(T[k]);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      out.image[(static_cast<size_t>(v) * C + c) * hw + local] = acc[k][c] + t * w.bg[c];
+    out.depth[pix] = dep[k];
+    out.tfinal[pix] = t;
+    out.last[pix] = last[k];
+  }
 }
 
 // The backward's launch shape: BWD_PIX pixels per thread, so a 32 px tile
@@ -259,16 +457,6 @@ __host__ __device__ constexpr int bwd_min_blocks(int tile, int c) {
   return (c <= 5 ? 768 : 512) / bwd_threads(tile);
 }
 
-// Calls fn(std::integral_constant<int, TILE>{}) for the tiles the backward
-// body takes (16 and 32 px); false for any other.
-template <typename Fn>
-bool with_bwd_tile(int tile, Fn&& fn) {
-  switch (tile) {
-    case 16: fn(std::integral_constant<int, 16>{}); return true;
-    case 32: fn(std::integral_constant<int, 32>{}); return true;
-    default: return false;
-  }
-}
 
 // Sums v[0..K) over the warp's 32 lanes by recursive halving (a
 // reduce-scatter): in the round of lane bit OFF each lane keeps one half
@@ -311,50 +499,6 @@ __device__ __forceinline__ int reduce_scatter_row(int lane) {
   return real == 1 ? row : -1;
 }
 
-// The backward's staging, one batch ahead of the walk: value e = t + m * NT
-// of a batch of n pairs at [base, base + n) is row e % REC of pair e / REC.
-// stage_sources loads each value's record index (kExact: its gid, a batch
-// earlier still, so the gather never waits on it); stage_values loads the
-// values; stage_store writes them to shared memory, flat in (pair, row).
-template <Family F, int REC, int NT, int PER>
-__device__ __forceinline__ void stage_sources(int (&src)[PER], const Walk& w, int v, int base,
-                                              int n) {
-#pragma unroll
-  for (int m = 0; m < PER; ++m) {
-    const int e = static_cast<int>(threadIdx.x) + m * NT;
-    const int j = e / REC;
-    src[m] = 0;
-    if (e < n * REC)
-      src[m] = F == Family::kExact ? w.gid[static_cast<size_t>(v) * w.P + base + j] : base + j;
-  }
-}
-
-template <Family F, int REC, int NT, int PER>
-__device__ __forceinline__ void stage_values(float (&val)[PER], const int (&src)[PER],
-                                             const Walk& w, int v, int n, float ox, float oy) {
-  const size_t rows = F == Family::kExact ? w.N : w.P;
-  const float* rec_v = w.rec + static_cast<size_t>(v) * rows * REC;
-#pragma unroll
-  for (int m = 0; m < PER; ++m) {
-    const int e = static_cast<int>(threadIdx.x) + m * NT;
-    const int r = e % REC;
-    if (e < n * REC) {
-      const float x = rec_v[static_cast<size_t>(src[m]) * REC + r];
-      val[m] = r == 0 ? x - ox : (r == 1 ? x - oy : x);
-    }
-  }
-}
-
-template <int REC, int NT, int PER, int BATCH>
-__device__ __forceinline__ void stage_store(float (&s)[BATCH][REC], const float (&val)[PER],
-                                            int n) {
-#pragma unroll
-  for (int m = 0; m < PER; ++m) {
-    const int e = static_cast<int>(threadIdx.x) + m * NT;
-    if (e < n * REC) (&s[0][0])[e] = val[m];
-  }
-}
-
 // Backward composite of block (tile, view), bwd_threads(TILE) threads of
 // BWD_PIX pixels each: per pixel, from the forward's `last` back to the
 // tile's start,
@@ -393,7 +537,7 @@ __device__ __forceinline__ void composite_bwd_body(const Walk& w, const BwdIn& g
 
   // This thread's pixels: column tid % TILE of the tile and rows tid / TILE
   // + k ROWS (NT is a multiple of TILE, so they share one column and the dx
-  // terms of power), in the family's frame as pixel_of's.  Per pixel: T
+  // terms of power), in the family's frame as the forward's.  Per pixel: T
   // (walking back to T_excl), the suffix sum S, the cotangents.  Pixels
   // outside the image have last = -1 and never go live.
   constexpr int ROWS = NT / TILE;

@@ -5,7 +5,8 @@
 // tile's [start, end) pairs, records gathered by gid from the per-Gaussian
 // table, at most 5 colour channels (the grid kernel's limit).  The walk is
 // composite_common.cuh's forward body; this file instantiates it for 1..5
-// channels, BATCH pairs per shared-memory batch, up to 32 px tiles.
+// channels at 8, 16, 24 and 32 px tiles (fwd_blocks_per_tile(tile)
+// blocks of fwd_threads(tile) threads of 2 pixels each per tile).
 
 #include "composite_common.cuh"
 
@@ -14,37 +15,40 @@ namespace {
 using namespace splatpu;
 
 constexpr int MAX_C = 5;
-constexpr int BATCH = 256;
 
-template <int C>
-__global__ void __launch_bounds__(1024) composite_fwd_kernel(Walk w, FwdOut out) {
-  composite_fwd_body<C, Family::kExact, BATCH, false>(w, out);
+template <int C, int TILE>
+__global__ void __launch_bounds__(fwd_threads(TILE), fwd_min_blocks(TILE, C))
+    composite_fwd_kernel(Walk w, FwdOut out) {
+  composite_fwd_body<C, Family::kExact, TILE>(w, out);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the composite on `stream` over a (num_tiles, V) grid of
-// tile*tile threads; returns cudaGetLastError() (0 on success).
+// Launches the composite on `stream` over a (num_tiles *
+// fwd_blocks_per_tile(tile), V) grid of fwd_threads(tile) threads, tile 8,
+// 16, 24 or 32; returns cudaGetLastError() (0 on success).
 int splatpu_composite_fwd(const void* table, const void* gid, const void* start,
                           const void* end, const void* bg, void* image,
                           void* depth, void* tfinal, void* last, int V, int N,
                           int P, int C, int tiles_x, int tiles_y, int tile,
                           int width, int height, void* stream) {
-  if (C < 1 || C > MAX_C || tile < 1 || tile * tile > 1024 || V < 1 || V > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (C < 1 || C > MAX_C || V < 1 || V > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const Walk w{static_cast<const float*>(table), static_cast<const int*>(gid),
                static_cast<const int*>(start), static_cast<const int*>(end),
-               static_cast<const float*>(bg), N, P, tiles_x, tiles_x * tiles_y, tile,
-               width, height};
+               static_cast<const float*>(bg), N, P, tiles_x, tiles_x * tiles_y, width, height};
   const FwdOut out{static_cast<float*>(image), static_cast<float*>(depth),
                    static_cast<float*>(tfinal), static_cast<int*>(last)};
-  const dim3 grid(w.num_tiles, V);
-  with_channels<MAX_C>(C, [&](auto nc) {
-    composite_fwd_kernel<decltype(nc)::value>
-        <<<grid, tile * tile, 0, static_cast<cudaStream_t>(stream)>>>(w, out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool tile_ok = with_tile(FwdTiles{}, tile, [&](auto nt) {
+    constexpr int TILE = decltype(nt)::value;
+    const dim3 grid(w.num_tiles * fwd_blocks_per_tile(TILE), V);
+    with_channels<MAX_C>(C, [&](auto nc) {
+      composite_fwd_kernel<decltype(nc)::value, TILE><<<grid, fwd_threads(TILE), 0, s>>>(w, out);
+    });
   });
+  if (!tile_ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

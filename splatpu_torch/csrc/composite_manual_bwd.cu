@@ -41,14 +41,13 @@ int splatpu_composite_manual_bwd(const void* table, const void* gid, const void*
   if (C < 1 || C > MAX_C || V < 1 || V > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const Walk w{static_cast<const float*>(table), static_cast<const int*>(gid),
                static_cast<const int*>(start), static_cast<const int*>(end),
-               static_cast<const float*>(bg), N, P, tiles_x, tiles_x * tiles_y, tile,
-               width, height};
+               static_cast<const float*>(bg), N, P, tiles_x, tiles_x * tiles_y, width, height};
   const BwdIn g{static_cast<const float*>(tfinal), static_cast<const int*>(last),
                 static_cast<const float*>(g_img), static_cast<const float*>(g_depth),
                 static_cast<const float*>(g_tf), static_cast<float*>(d_rows)};
   const dim3 grid(w.num_tiles, V);
   const auto s = static_cast<cudaStream_t>(stream);
-  const bool tile_ok = with_bwd_tile(tile, [&](auto nt) {
+  const bool tile_ok = with_tile(BwdTiles{}, tile, [&](auto nt) {
     constexpr int TILE = decltype(nt)::value;
     with_channels<MAX_C>(C, [&](auto nc) {
       manual_bwd_kernel<decltype(nc)::value, TILE><<<grid, bwd_threads(TILE), 0, s>>>(w, g);

@@ -43,7 +43,7 @@ int splatpu_padded_bwd(const void* records, const void* start, const void* end, 
   if (C < 1 || C > MAX_C || V < 1 || V > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const Walk w{static_cast<const float*>(records), nullptr, static_cast<const int*>(start),
                static_cast<const int*>(end), static_cast<const float*>(bg), 0, Pp, tiles_x,
-               tiles_x * tiles_y, TILE, width, height};
+               tiles_x * tiles_y, width, height};
   const BwdIn g{static_cast<const float*>(tfinal), static_cast<const int*>(last),
                 static_cast<const float*>(g_img), static_cast<const float*>(g_depth),
                 static_cast<const float*>(g_tf), static_cast<float*>(d_rows)};

@@ -13,8 +13,9 @@
 // walk's stop at the pair that would take T below 1e-4.  `last` is the
 // int32 padded position of the last pair that contributed.  The walk is
 // composite_common.cuh's forward body (family kPadded), instantiated here
-// for 1..9 channels; each batch is one coalesced sweep over contiguous
-// rows, with no gather.
+// for 1..9 channels at 16 px tiles, one block of fwd_threads(16) = 128
+// threads of 2 pixels per tile; each batch is one coalesced sweep over
+// contiguous rows, with no gather.
 
 #include "composite_common.cuh"
 
@@ -24,33 +25,33 @@ using namespace splatpu;
 
 constexpr int MAX_C = 9;
 constexpr int TILE = 16;
-constexpr int NPIX = TILE * TILE;
-constexpr int BATCH = 128;  // pairs staged per shared-memory batch
 
 template <int C>
-__global__ void __launch_bounds__(NPIX) padded_fwd_kernel(Walk w, FwdOut out) {
-  composite_fwd_body<C, Family::kPadded, BATCH, false>(w, out);
+__global__ void __launch_bounds__(fwd_threads(TILE), fwd_min_blocks(TILE, C))
+    padded_fwd_kernel(Walk w, FwdOut out) {
+  composite_fwd_body<C, Family::kPadded, TILE>(w, out);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches K5's forward on `stream` over a (num_tiles, V) grid of 256
-// threads, C of 1..9; returns cudaGetLastError() (0 on success).
+// Launches K5's forward on `stream` over a (num_tiles, V) grid of
+// fwd_threads(16) threads, C of 1..9; returns cudaGetLastError() (0 on
+// success).
 int splatpu_padded_fwd(const void* records, const void* start, const void* end, const void* bg,
                        void* image, void* depth, void* tfinal, void* last, int V, int Pp, int C,
                        int tiles_x, int tiles_y, int width, int height, void* stream) {
   if (C < 1 || C > MAX_C || V < 1 || V > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const Walk w{static_cast<const float*>(records), nullptr, static_cast<const int*>(start),
                static_cast<const int*>(end), static_cast<const float*>(bg), 0, Pp, tiles_x,
-               tiles_x * tiles_y, TILE, width, height};
+               tiles_x * tiles_y, width, height};
   const FwdOut out{static_cast<float*>(image), static_cast<float*>(depth),
                    static_cast<float*>(tfinal), static_cast<int*>(last)};
-  const dim3 grid(w.num_tiles, V);
+  const dim3 grid(w.num_tiles * fwd_blocks_per_tile(TILE), V);
   with_channels<MAX_C>(C, [&](auto nc) {
     padded_fwd_kernel<decltype(nc)::value>
-        <<<grid, NPIX, 0, static_cast<cudaStream_t>(stream)>>>(w, out);
+        <<<grid, fwd_threads(TILE), 0, static_cast<cudaStream_t>(stream)>>>(w, out);
   });
   return static_cast<int>(cudaGetLastError());
 }

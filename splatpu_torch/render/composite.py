@@ -13,12 +13,15 @@ Two pairs of kernels gather their records from the per-Gaussian table:
   1..9 channels (``NREC - R_COLOR0`` of the TPU kernels) and any pair
   budget, with the channel count a template parameter.
 
-The forward kernels: one block per (tile, view), one thread per pixel
-walking the tile's sorted pairs front to back, records gathered by ``gid``
-into shared memory, block exit once every pixel is done.  On the H100 they
-are bound by their FP32 arithmetic (~16 operations and one exp per
-evaluated (pixel, pair)), not by their bytes; the ``.cu`` files say what
-the design does about that.
+The forward kernels: tiles of 8, 16, 24 or 32 px (``FWD_TILES``; any
+other tile is refused before a launch), one block per (tile, view), or per
+16 px square of a 32 px tile; each thread walks 2 pixels of one column
+front to back over the tile's sorted pairs, records gathered by ``gid``
+into shared memory a batch ahead; each warp skips the pairs that cannot
+reach its 8 x 8 pixels; block exit once every pixel is done; T is carried
+in float64, as the plain version does.  On the H100 they are bound by their FP32 arithmetic (~16
+operations and one exp per evaluated (pixel, pair)), not by their bytes;
+``csrc/composite_common.cuh`` says what the design does about that.
 
 Inputs, shared by all versions (V views, N Gaussians, P pair slots, T tiles):
 
@@ -57,6 +60,7 @@ from splatpu_torch.core.projection import ALPHA_MAX, ALPHA_MIN, TRANSMITTANCE_EP
 REC_GEOM = 7
 MAX_C = 5          # K1/K2, as the TPU grid kernel's packed output
 MAX_C_MANUAL = 9   # K4: the TPU kernels' NREC - R_COLOR0
+FWD_TILES = (8, 16, 24, 32)  # the tiles the forward body takes (px)
 BWD_TILES = (16, 32)  # the tiles the backward body takes (px)
 
 LAUNCHES = 0             # kernel launches made by composite_fwd_cuda (K1)
@@ -89,8 +93,8 @@ def _check_inputs(table, gid, start, end, bg, tiles_x, tiles_y, tile, max_c=MAX_
         raise ValueError("gid/start/end do not match the table's views and tile grid")
     if bg.shape != (c,):
         raise ValueError(f"bg must have shape ({c},), got {tuple(bg.shape)}")
-    if tile * tile > 1024:
-        raise ValueError(f"tile {tile} needs more than 1024 threads per block")
+    if tile not in FWD_TILES:
+        raise ValueError(f"the composite takes {FWD_TILES} px tiles, got {tile}")
     check_types(table=(table, torch.float32), gid=(gid, torch.int32),
                 start=(start, torch.int32), end=(end, torch.int32), bg=(bg, torch.float32))
     return v, c

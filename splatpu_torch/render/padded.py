@@ -5,9 +5,9 @@
 K5 replaces the TPU kernels ``pallas_composite.py::_fwd_kernel`` and
 ``_bwd_kernel`` (via ``_composite_fwd_call`` / ``_composite_bwd_call``):
 ``csrc/padded_fwd.cu`` and ``csrc/padded_bwd.cu``, one block per (tile,
-view) (the forward 256 threads of one pixel each, the backward 64 of four),
-records gathered per pair before the call, segments tested by ``pos <
-end`` only.  What K5 computes differently from the table composites (K1/K2,
+view) (the forward 128 threads of two pixels each, the backward 64 of
+four), records gathered per pair before the call, segments tested by
+``pos < end`` only.  What K5 computes differently from the table composites (K1/K2,
 K4) follows its TPU kernel: absolute pixel coordinates, and an opacity row
 of sum(exp(power) * dalpha).
 Like them, it is bound by its FP32 arithmetic on the H100.

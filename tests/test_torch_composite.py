@@ -18,7 +18,12 @@ from splatpu.render.binning import BinningConfig as JBinningConfig
 import splatpu_torch.core.types as tt
 from splatpu_torch.render.api import render, resolve_impl
 from splatpu_torch.render.binning import BinningConfig
-from splatpu_torch.render.composite import composite_fwd_cuda, composite_fwd_plain, pack_table
+from splatpu_torch.render.composite import (
+    composite_fwd_cuda,
+    composite_fwd_plain,
+    composite_manual_fwd_plain,
+    pack_table,
+)
 from splatpu_torch.render.exact import build_exact_stream
 from _torch_scenes import (
     jax_camera, jax_cloud, np_cloud, np_lookat, np_of, torch_camera, torch_cloud,
@@ -193,3 +198,19 @@ def test_dispatch_and_guards():
         render(args4, cam, impl="cuda")
     with pytest.raises(ValueError, match="channels"):
         composite_fwd_plain(z((1, 4, 14)), *args[1:4], z(7), **geo)
+
+
+@pytest.mark.parametrize("tile", [4, 12, 20, 40])
+def test_tile_outside_forward_set_refused(tile):
+    """The composite takes the forward kernels' tiles, 8, 16, 24 and 32 px
+    (the tiles of JAX's exact kernels up to 32): the input check, which the
+    CUDA wrappers run before they launch, refuses any other."""
+    z = torch.zeros
+    args = (z((1, 4, 10)), z((1, 8), dtype=torch.int32), z((1, 1), dtype=torch.int32),
+            z((1, 1), dtype=torch.int32), z(3))
+    geo = dict(tiles_x=1, tiles_y=1, tile=tile, width=tile, height=tile)
+    for fwd in (composite_fwd_plain, composite_manual_fwd_plain):
+        with pytest.raises(ValueError, match="px tiles"):
+            fwd(*args, **geo)
+    image, *_ = composite_fwd_plain(*args, **dict(geo, tile=8, width=8, height=8))
+    assert image.shape == (1, 3, 8, 8)

@@ -1,9 +1,10 @@
 """The CUDA composite kernels (K1/K2, K4 under kernel="manual", K5 of the
 padded path; forward and backward) and the routing kernel against their
-plain PyTorch versions, on the card: the backward body at 16 and 32 px
-tiles, 1 to 9 channels and image sizes that cut the last tiles; the
-routing in both slot modes, 8 to 16 rows, slot runs up to 512, dropped and
-clipped slots; each bitwise identical across two launches.
+plain PyTorch versions, on the card: the forward body at 8, 16, 24 and 32
+px tiles with ``last`` identical, the backward body at 16 and 32 px tiles,
+1 to 9 channels and image sizes that cut the last tiles; the routing in
+both slot modes, 8 to 16 rows, slot runs up to 512, dropped and clipped
+slots; each bitwise identical across two launches.
 
 Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere.  Imports nothing of
 JAX, so it runs on a machine without it:
@@ -79,7 +80,7 @@ def test_kernel_matches_plain(cuda, n, views, width, height, tile, channels):
     for a, b, tol in zip(got[:3], ref[:3], (2e-5, 2e-4, 2e-5)):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max()) <= tol
-    assert float((got[3] == ref[3]).float().mean()) >= 0.9999
+    assert torch.equal(got[3], ref[3])
     assert bool((got[3] >= 0).any())
 
 
@@ -366,3 +367,100 @@ def test_backward_body_matches_plain(cuda, kernel, tile, channels):
     # The pixels of the cut tiles reach the rows: the last tile column and
     # row of the image hold live pixels.
     assert bool((last[:, :, w - 1] >= 0).any()) and bool((last[:, h - 1, :] >= 0).any())
+
+
+def forward_scene(seed, channels, device):
+    """2,000 splats spread over most of a 100x70 frame (no tile size divides
+    it) and, in front of view 0, a wall of 200 opaque ones: at every tile
+    size the renders hold empty tiles, segments of several hundred pairs,
+    pixels whose T reaches 1e-4 within their first batch of 32 pairs, and
+    live pixels in the cut last tile column and row."""
+    rng = np.random.default_rng(seed)
+    args, cams = scene(seed, 2000, 2, 100, 70, channels, device)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    n = 200
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    wall = np.stack([rng.uniform(-0.6, 0.6, n), rng.uniform(-0.5, 0.5, n),
+                     rng.uniform(-2.3, -1.8, n)], 1)
+    return tt.RenderArgs(
+        means3d=torch.cat([args.means3d * t([1.5, 1.3, 1.0]) + t([0.7, 0.5, 0.0]), t(wall)]),
+        colors=torch.cat([args.colors, t(rng.uniform(0, 1, (n, channels)))]),
+        rotations=torch.cat([args.rotations, t(q)]),
+        opacities=torch.cat([args.opacities, t(np.full((n, 1), 0.98))]),
+        scales=torch.cat([args.scales, t(rng.uniform(0.05, 0.12, (n, 3)))]),
+    ), cams
+
+
+FWD_CASES = [("composite_fwd", t, c) for t in (8, 16, 24, 32) for c in (1, 3, 5)] + [
+    ("composite_manual_fwd", 32, c) for c in (1, 3, 9)] + [("padded_fwd", 16, c) for c in (3, 9)]
+
+
+@pytest.mark.parametrize("kernel,tile,channels", FWD_CASES)
+def test_forward_body_matches_plain(cuda, kernel, tile, channels):
+    """Each forward kernel against its plain version: image 2e-5, depth 2e-4,
+    final T 2e-5, ``last`` identical; two launches bitwise identical; at the
+    backward's tiles, the backward run from this forward's ``last`` and
+    final T against its plain version, 1e-4 scaled per row."""
+    import splatpu_torch.render.padded as padded
+    from splatpu_torch.render.binning import build_pair_stream
+    from splatpu_torch.render.composite import BWD_TILES, pack_table, untile
+
+    args, cams = forward_scene(tile + channels, channels, cuda)
+    v, h, w = cams.num_views, cams.height, cams.width
+    bg = torch.linspace(0.1, 0.3, channels, device=cuda)
+    if kernel == "padded_fwd":
+        cfg = BinningConfig(tile=16, max_span=256, max_pairs=1 << 17, chunk_pairs=128)
+        streams = [build_pair_stream(args, cams.view(i), cfg) for i in range(v)]
+        records = torch.stack([
+            pack_table(s.splats.mean2d, s.splats.conic, s.g_opacity, s.splats.depth, s.g_colors)
+            [s.gid.long()] for s in streams]).contiguous()
+        start, end = torch.stack([s.start for s in streams]), torch.stack([s.end for s in streams])
+        kin = (records, start, end, bg)
+        geo = dict(tiles_x=-(-w // 16), tiles_y=-(-h // 16), width=w, height=h)
+        fwd, fwd_plain = padded.padded_fwd_cuda, padded.padded_fwd_plain
+        bwd, bwd_plain = padded.padded_bwd_cuda, padded.padded_bwd_plain
+        counter = (padded, "LAUNCHES")
+    else:
+        cfg = BinningConfig(tile=tile, max_span=256, max_pairs=1 << 18, chunk_pairs=256)
+        _, k = composite_inputs(args, cams, cfg)
+        start, end = k["start"], k["end"]
+        kin, geo = (k["table"], k["gid"], start, end, bg), k["geometry"]
+        fwd, fwd_plain = getattr(composite, f"{kernel}_cuda"), getattr(composite, f"{kernel}_plain")
+        bwd_name = kernel.replace("fwd", "bwd")
+        bwd, bwd_plain = (getattr(composite, f"{bwd_name}_cuda"),
+                          getattr(composite, f"{bwd_name}_plain"))
+        counter = (composite, "LAUNCHES" if kernel == "composite_fwd" else "MANUAL_LAUNCHES")
+    before = getattr(*counter)
+    got = fwd(*kin, **geo)
+    again = fwd(*kin, **geo)
+    torch.cuda.synchronize()
+    assert getattr(*counter) == before + 2
+    *ref, n_eval, _ = fwd_plain(*kin, **geo, with_counts=True)
+    assert got[0].shape == (v, channels, h, w)
+    for a, b, tol in zip(got[:3], ref[:3], (2e-5, 2e-4, 2e-5)):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= tol
+    assert torch.equal(got[3], ref[3])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+    # What the scene holds: empty tiles and segments of many batches; pixels
+    # that stop (walk fewer pairs than their tile holds) within 32 pairs;
+    # live pixels in the cut last tile column and row.
+    seg = end - start
+    assert bool((seg == 0).any()) and int(seg.max()) > 4 * 32
+    seg_px = untile(seg.reshape(v, -1, 1, 1).expand(-1, -1, tile * tile, 1), geo["tiles_x"],
+                    geo["tiles_y"], tile, w, h)[:, 0]
+    assert bool(((n_eval > 0) & (n_eval <= 32) & (n_eval < seg_px)).any())
+    assert bool((got[3][:, :, w - 1] >= 0).any()) and bool((got[3][:, h - 1, :] >= 0).any())
+
+    if tile in BWD_TILES:
+        rng = np.random.default_rng(tile * 10 + channels)
+        t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda)  # noqa: E731
+        cot = (t(rng.normal(size=(v, channels, h, w))), t(rng.normal(size=(v, h, w))),
+               t(rng.normal(size=(v, h, w))))
+        rows = bwd(*kin, got[2], got[3], *cot, **geo)
+        torch.cuda.synchronize()
+        ref_rows = bwd_plain(*kin, got[2], got[3], *cot, **geo)
+        assert torch.isfinite(rows).all() and rows.abs().max() > 0
+        assert row_scaled_err(rows, ref_rows) <= 1e-4
