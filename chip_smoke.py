@@ -72,10 +72,52 @@ Phases, each printed with its wall time and bounded by a watchdog:
    its plain version, with its time, the plain version's, one
    ``index_add_`` of the in-budget slots' rows by (view, gid) and its bound.
 
+11. bwd_tiles: at 5 x 320x180 with 8 and 24 px tiles (``NEW_BWD_TILES``):
+   K1 and K4's forward there against their plain versions (``last``
+   identical), and K2 and K4's backward from that ``last``, held as in
+   compare_bwd; then K2 at those tiles at the training shapes (five
+   1280x720 rig views at each tile's demand budget) against its plain
+   version, its time and its bound.  It runs after the measure phases so
+   that the serve, train and measure phases follow the same work as before
+   these tiles existed.
+12. train_options: ``train`` at full width, 2 timesteps, from the same
+   start each time: ``view_batching="vmap"`` and ``"map"`` (five renders
+   per step; its per-step losses within 1e-5 relative of vmap's) and
+   ``compute_dtype="bfloat16"`` (finite losses), 1 iteration each; then
+   the three view stagings (``"device"``, ``"host"``, ``"device_rotate"``
+   with 8 resident cameras restaged every iteration) of the views as the
+   sequence loader gives them (float32),
+   STAGING_ITERATIONS iterations each, whose wall time per sequence
+   iteration (the card synchronised at each iteration's end; staging,
+   steps and logging included) is printed beside the steps' CUDA-event
+   times; each run through K1, K2 and the routing only.
+13. cli: the command line end to end at full width.  BASELINE config 3 as
+   a sequence on disk (the config-3 cloud as
+   ``densified_initial_gaussian_cloud_parameters.npz``; 27 rig cameras x 3
+   frames at 1280x720 rendered on the card, frame 0 unmoved, written as
+   JPEG through PIL, or PNG without it); ``cli.train`` for 2 iterations x
+   2 timesteps with host staging and a checkpoint per iteration, then
+   again for a third iteration resumed from that checkpoint with
+   device_rotate staging (8 resident cameras, restaged every iteration),
+   config 3's head flags; then ``cli.render`` of the bundle.  Checks the
+   checkpoint's ``seq_it``, the resumed run's first step (5), finite losses
+   and ``mean-image-loss`` rows, the bundle's files, the standalone
+   render's frames within 1 level of the trainer's, and that only K1, K2
+   and the routing launched; prints ms per step and wall ms per iteration
+   by staging mode, the checkpoint write, the sequence load and whether
+   video was written.
+14. knn_native: 250,000 points from a seed through ``knn`` (which routes
+   them to the native KD-tree), timed beside the port's own
+   ``knn_bruteforce`` on the card, against brute force on the card: indices
+   identical to a brute force in the tree's float32 arithmetic, squared
+   distances within 1e-6 relative of float64's (near ties, where float32
+   and float64 order two neighbours differently, are counted).
+
 Prints one ``{"kernels": [...]}`` JSON line (the routing once per slot
 mode, each with the launches of its paths; the forwards also with their
 time and bound at the training shapes, ``train_ms`` and
-``train_bound_ms``), then the card line, and last
+``train_bound_ms``; K2 also at 8 and 24 px tiles at the training shapes,
+``tiles``), then the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; nothing is
 caught and continued.  Imports nothing of JAX.
 """
@@ -85,6 +127,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import faulthandler
+import importlib.util
 import json
 import re
 import subprocess
@@ -105,6 +148,12 @@ NEW_SERVE_TIMESTEPS = 10    # depth cut of serve_manual / serve_padded
 NEW_TRAIN_TIMESTEPS = 2     # depth cut of train_manual / train_padded
 NEW_TRAIN_ITERATIONS = 2
 CHANNELS = (3, 9)      # colour channels K4 and K5 are compared at
+NEW_BWD_TILES = (8, 24)  # the backward body's tiles besides 16 and 32 (px)
+OPTION_TIMESTEPS = 2     # train_options: timesteps per run
+STAGING_ITERATIONS = 6   # train_options: sequence iterations per staging mode
+CLI_FRAMES = 3           # cli: frames 0..2 of the sequence, T = 2 trainable
+KNN_POINTS = 250_000     # knn_native: above the native route's 200,000
+KNN_K = 20
 BIG_P = (1 << 24) + (1 << 20)  # gid slots of K4's large-budget call
 BIG_BASE = 1 << 24             # where its segments start
 BIG_TILES = 4
@@ -141,6 +190,12 @@ PTXAS_NAMES = {
     "composite_fwd_kernelILi3ELi16E": "composite_fwd tile 16",
     "composite_bwd_kernelILi3ELi32E": "composite_bwd",
     "composite_bwd_kernelILi3ELi16E": "composite_bwd tile 16",
+    "composite_bwd_kernelILi3ELi8E": "composite_bwd tile 8",
+    "composite_bwd_kernelILi3ELi24E": "composite_bwd tile 24",
+    "manual_bwd_kernelILi3ELi8E": "composite_manual_bwd tile 8",
+    "manual_bwd_kernelILi3ELi24E": "composite_manual_bwd tile 24",
+    "manual_bwd_kernelILi9ELi8E": "composite_manual_bwd C=9 tile 8",
+    "manual_bwd_kernelILi9ELi24E": "composite_manual_bwd C=9 tile 24",
     "route_pairs_kernelILi10ELb0E": "route_pairs",
     "route_pairs_kernelILi10ELb1E": "route_pairs padded",
     "route_pairs_kernelILi16ELb1E": "route_pairs R=16 padded",
@@ -190,6 +245,7 @@ class StepLog:
         self.seen = None
         self.steps, self.growth_steps, self.growths = [], set(), 0
         self.changed_after_first = False
+        self.iteration_ms = []
 
     def log(self, metrics, step):
         if "budget_growth" in metrics:
@@ -439,9 +495,9 @@ def bwd_work(kin_start, last, geo, n_live):
 
 
 def kernel_entry(name, source, replaces, by_path, err, ms, plain_ms, bound, library_ms=None,
-                 train=None):
+                 train=None, tiles=None):
     """One entry of the kernels line; ``train``: a forward's numbers at the
-    training shapes."""
+    training shapes; ``tiles``: a backward's at other tiles there."""
     bound_ms, t_bytes, t_ops = bound[:3]
     entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -452,6 +508,8 @@ def kernel_entry(name, source, replaces, by_path, err, ms, plain_ms, bound, libr
     if train is not None:
         entry.update(train_ms=train["ms"], train_bound_ms=train["bound"][0],
                      train_max_abs_err=train["err"])
+    if tiles is not None:
+        entry["tiles"] = tiles
     return entry
 
 
@@ -507,10 +565,24 @@ def serve_path(name, net, cloud, config, expected_fwd, timesteps):
     return counts, stats
 
 
-def train_path(name, cloud, views, tcfg, expected, n_steps):
+def iteration_clock(ends):
+    """An ``on_iteration`` for ``train`` that appends, after each sequence
+    iteration, the host clock once the card has finished its work: the
+    differences are the wall time of an iteration, view staging, steps,
+    logging and checkpoint write included."""
+    import torch
+
+    def on_iteration(*_):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+
+    return on_iteration
+
+
+def train_path(name, cloud, views, tcfg, expected, n_steps, per_step=1):
     """``train`` with every count zeroed just before and read just after;
-    checks each step's launches (``expected`` once each, nothing else),
-    losses, gradients and budget.  Returns (counts, log)."""
+    checks each step's launches (``expected`` ``per_step`` times each,
+    nothing else), losses, gradients and budget.  Returns (counts, log)."""
     import numpy as np
     import torch
 
@@ -519,30 +591,35 @@ def train_path(name, cloud, views, tcfg, expected, n_steps):
 
     tnet, _ = load_stage2_run(RUN, device=DEVICE)
     log = StepLog(tnet, expected)
+    ends = []
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
-    stage2.train(cloud, views, tcfg, logger=log, initial_net=tnet, device=DEVICE)
+    stage2.train(cloud, views, tcfg, logger=log, initial_net=tnet, device=DEVICE,
+                 on_iteration=iteration_clock(ends))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     counts = launch_counts()
     step_ms = np.array([m["step_ms"] for _, m in log.steps])
+    log.iteration_ms = [1e3 * (b - a) for a, b in zip(ends, ends[1:])]
     print(f"  train(): {n_steps} steps in {train_s:.2f} s wall (setup and staging"
-          f" included); step ms (CUDA events) mean {step_ms.mean():.2f} median"
-          f" {np.median(step_ms):.2f} min {step_ms.min():.2f} max {step_ms.max():.2f};"
+          f" included); step ms (CUDA events, the steps only) mean {step_ms.mean():.2f} median"
+          f" {np.median(step_ms):.2f} min {step_ms.min():.2f} max {step_ms.max():.2f}; wall ms"
+          f" per sequence iteration after the first {[round(x, 2) for x in log.iteration_ms]};"
           f" launches {counts}; growths {log.growths}", flush=True)
     if len(log.steps) != n_steps:
         fail(f"{name}: logged {len(log.steps)} steps, expected {n_steps}")
     for k in expected:
-        if counts[k] != n_steps:
-            fail(f"{name}: {k} launched {counts[k]} times in {n_steps} steps, expected {n_steps}")
+        if counts[k] != n_steps * per_step:
+            fail(f"{name}: {k} launched {counts[k]} times in {n_steps} steps, expected"
+                 f" {n_steps * per_step}")
     check_only(counts, set(expected), name)
     for step_idx, m in log.steps:
         if not np.isfinite(m["total"]):
             fail(f"{name} step {step_idx}: non-finite loss {m['total']}")
         if not (np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0):
             fail(f"{name} step {step_idx}: grad_norm {m['grad_norm']}")
-        if any(m["launched"][k] != (1 if k in expected else 0) for k in COUNTERS):
+        if any(m["launched"][k] != (per_step if k in expected else 0) for k in COUNTERS):
             fail(f"{name} step {step_idx}: kernel launches {m['launched']}")
         if m["binning_overflow"] and step_idx not in log.growth_steps:
             fail(f"{name} step {step_idx}: binning overflow not followed by growth")
@@ -692,6 +769,336 @@ def compare_padded_case(where, args, cams, binning):
     print(f"  {where}: backward + routing bitwise identical across two runs", flush=True)
 
 
+def table_bwd_bound(kin, geo, last, n_live):
+    """A table backward's work and bound: (evaluations, live steps, bytes,
+    FP32 ops, bytes ms, ops ms).  Bytes: the table, each pair's gid, the
+    segments, the per-pixel inputs and cotangents read once, the rows
+    written once."""
+    v, n, rec = kin[0].shape
+    p = kin[1].shape[1]
+    c = rec - 7
+    evals, live = bwd_work(kin[2], last, geo, n_live)
+    hw = geo["width"] * geo["height"]
+    pairs = int(kin[3][:, -1].sum())
+    b_bytes = 4 * (v * n * rec + pairs + 2 * kin[2].numel() + c + v * hw * (c + 4) + v * p * rec)
+    b_ops = OPS_PER_EVAL * evals + ops_bwd_per_live(c) * live
+    return (evals, live, b_bytes, b_ops, 1e3 * b_bytes / PEAK_BYTES_S,
+            1e3 * b_ops / PEAK_FP32_FLOPS)
+
+
+def measure_bwd_tile(label, case, fwd_plain, bwd, bwd_plain):
+    """A table backward at ``case``'s tile: its rows against the plain
+    version's (1e-4 scaled per row), its time and its bound there."""
+    import torch
+
+    from splatpu_torch.tools.measure import cuda_ms, row_scaled_err
+
+    kin, geo, cot, (tfin, last) = case["kin"], case["geo"], case["cot"], case["fwd"]
+    *_, n_live = fwd_plain(*kin, **geo, with_counts=True)
+    run = lambda: bwd(*kin, tfin, last, *cot, **geo)  # noqa: E731
+    rows = run()
+    torch.cuda.synchronize()
+    rows_ref = bwd_plain(*kin, tfin, last, *cot, **geo)
+    check_rows(label, {"rows": row_scaled_err(rows, rows_ref)})
+    err = float((rows - rows_ref).abs().max())
+    del rows_ref
+    ms = cuda_ms(run, reps=20, warmup=3)
+    evals, live, b_bytes, b_ops, t_bytes, t_ops = table_bwd_bound(kin, geo, last, n_live)
+    bound = max(t_bytes, t_ops)
+    v, p, rec = kin[0].shape[0], kin[1].shape[1], kin[0].shape[2]
+    print(f"  {label}: {ms:.4f} ms/launch; bound {bound:.4f} ms (bytes {b_bytes} ->"
+          f" {t_bytes:.4f} ms, of them {4 * v * p * rec} the rows of every budget slot, which"
+          f" the wrapper zeroes; FP32 ops {b_ops} -> {t_ops:.4f} ms); pairs"
+          f" {int(kin[3][:, -1].sum())} of {v * p} slots, evaluations {evals}, live {live}",
+          flush=True)
+    return {"ms": ms, "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": err}
+
+
+def options_paths(cloud, views, base_cfg):
+    """train_options: from the same start (the checkpoint's network, a fresh
+    Adam) the three view stagings, map batching and a bfloat16 network;
+    map's per-step losses against vmap's, and each staging's wall time per
+    sequence iteration.  Returns {path: (counts, log)}."""
+    import numpy as np
+
+    expected = ("composite_fwd", "composite_bwd", "route_pairs")
+    cfg = dataclasses.replace(base_cfg, total_iterations=STAGING_ITERATIONS,
+                              timestep_count=OPTION_TIMESTEPS, view_staging="device")
+    one = dict(total_iterations=1)
+    staging = {"train_options_device": "device", "train_options_host": "host",
+               "train_options_rotate": "device_rotate"}
+    out = {}
+    # The stagings get the views as the sequence loader gives them: float32.
+    as_loaded = [[dataclasses.replace(v, image=v.image.astype(np.float32) / 255.0)
+                  for v in per_t] for per_t in views[:OPTION_TIMESTEPS]]
+    for name, changes, per_step in (
+        ("train_options_vmap", one, 1),
+        ("train_options_map", {"view_batching": "map", **one}, cfg.views_per_step),
+        ("train_options_bf16", {"compute_dtype": "bfloat16", **one}, 1),
+        ("train_options_device", {}, 1),
+        ("train_options_host", {"view_staging": "host"}, 1),
+        ("train_options_rotate", {"view_staging": "device_rotate", "resident_cameras": 8,
+                                  "restage_every": 1}, 1),
+    ):
+        run_cfg = dataclasses.replace(cfg, **changes)
+        print(f"  {name}: {changes or 'device staging'}", flush=True)
+        out[name] = train_path(name, cloud, as_loaded if name in staging else
+                               views[:OPTION_TIMESTEPS], run_cfg, expected,
+                               run_cfg.total_iterations * OPTION_TIMESTEPS, per_step=per_step)
+    if out["train_options_bf16"][1].net.config.compute_dtype != "bfloat16":
+        fail("train_options: the bfloat16 run's network did not compute in bfloat16")
+    for (step, vm), (_, mm) in zip(out["train_options_vmap"][1].steps,
+                                   out["train_options_map"][1].steps):
+        for key in ("total", "l1", "ssim", "rigidity"):
+            rel = abs(mm[key] - vm[key]) / max(abs(vm[key]), 1e-30)
+            if not rel <= 1e-5:
+                fail(f"train_options step {step}: map {key} {mm[key]} vs vmap {vm[key]}"
+                     f" (relative {rel:.3e} > 1e-5)")
+    print("  map's per-step losses within 1e-5 relative of vmap's", flush=True)
+    for name, mode in staging.items():
+        log = out[name][1]
+        wall = log.iteration_ms
+        steps = [m["step_ms"] for _, m in log.steps]
+        if len(wall) != STAGING_ITERATIONS - 1 or not all(np.isfinite(wall)):
+            fail(f"{name}: wall times per iteration {wall}")
+        print(f"  staging {mode}: wall ms per sequence iteration ({OPTION_TIMESTEPS} steps,"
+              f" staging included) {[round(x, 2) for x in wall]}, median {np.median(wall):.2f};"
+              f" step ms (CUDA events, the steps only) median {np.median(steps):.2f}",
+              flush=True)
+    return out
+
+
+def cli_path(dev, cloud, head):
+    """The cli phase (module docstring): returns the launch counts."""
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import splatpu_torch.cli.render as cli_render
+    import splatpu_torch.cli.train as cli_train
+    import splatpu_torch.train.stage2 as stage2
+    from splatpu_torch.data.dataset import save_synthetic_sequence
+    from splatpu_torch.io.checkpoint import load_checkpoint, save_cloud
+    from splatpu_torch.io.images import have_pil, read_image
+    from splatpu_torch.tools.train_scene import render_targets
+
+    timed = {"load": [], "checkpoint": [], "payload": [], "put": []}
+
+    def timer(fn, key):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            timed[key].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return wrapped
+
+    with tempfile.TemporaryDirectory(prefix="splatpu_cli_") as tmp:
+        tmp = Path(tmp)
+        seq, out, ckpt = tmp / "config3", tmp / "out", tmp / "ckpt.msgpack"
+        t0 = time.perf_counter()
+        frames = render_targets(cloud, CLI_FRAMES, *SERVE_SIZE, impl="cuda", device=dev, start=0)
+        images = np.stack([[v.image for v in per_t] for per_t in frames])
+        suffix = ".jpg" if have_pil() else ".png"
+        pc = torch.cat([cloud.means, cloud.colors, cloud.segmentation_masks[:, :1]], 1)
+        save_synthetic_sequence(
+            seq, images, np.zeros(images.shape[:2] + images.shape[3:], np.uint8),
+            np.stack([[v.K for v in per_t] for per_t in frames]),
+            np.stack([[v.w2c for v in per_t] for per_t in frames]), pc.cpu().numpy(),
+            image_suffix=suffix)
+        save_cloud(seq / "densified_initial_gaussian_cloud_parameters.npz", cloud)
+        del frames, images
+        print(f"  sequence: {CLI_FRAMES} frames x 27 cameras at {SERVE_SIZE[0]}x{SERVE_SIZE[1]}"
+              f" ({suffix[1:]}, PIL {'present' if have_pil() else 'absent'}), cloud"
+              f" {cloud.capacity} Gaussians; written in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        heads = (["--delta-scale", str(head["delta_scale"])]
+                 + ([] if head["double_residual"] else ["--no-double-residual"])
+                 + (["--zero-init-head"] if head["zero_init_head"] else [])
+                 + (["--time-gate-head"] if head["time_gate_head"] else []))
+        common = [str(head["lr"]), "128", "3", "-t", str(CLI_FRAMES - 1), "-o", str(out),
+                  "--device", DEVICE, *heads]
+        patched = {(cli_train, "load_timestep_views"): "load", (cli_train, "load_cloud"): "load",
+                   (stage2, "save_checkpoint"): "checkpoint",
+                   (stage2, "checkpoint_payload"): "payload", (stage2.HostPrefetch, "put"): "put"}
+        originals = {k: getattr(*k) for k in [*patched, (cli_train, "train")]}
+        for (mod, attr), key in patched.items():
+            setattr(mod, attr, timer(getattr(mod, attr), key))
+        ends = []  # per cli.train run, the iteration clock's marks
+
+        def clocked_train(*a, **kw):
+            ends.append([])
+            return originals[(cli_train, "train")](*a, on_iteration=iteration_clock(ends[-1]),
+                                                   **kw)
+
+        cli_train.train = clocked_train
+        try:
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            cli_train.main(["config3", str(tmp), "2", "1", *common, "--view-staging", "host",
+                            "--checkpoint-every", "1", "--checkpoint-path", str(ckpt)])
+            first_s = time.perf_counter() - t0
+            seq_it = int(load_checkpoint(ckpt)["seq_it"])
+            run = out / "config3"
+            n_first = len((run / "train_metrics.jsonl").read_text().splitlines())
+            t0 = time.perf_counter()
+            cli_train.main(["config3", str(tmp), "3", "1", *common,
+                            "--view-staging", "device_rotate", "--resident-cameras", "8",
+                            "--restage-every", "1", "--resume-from", str(ckpt)])
+            second_s = time.perf_counter() - t0
+            bundle = run / "deformation_network"
+            t0 = time.perf_counter()
+            cli_render.main([str(bundle), "--timesteps", str(CLI_FRAMES - 1), "--width",
+                             str(SERVE_SIZE[0]), "--height", str(SERVE_SIZE[1]), "--device",
+                             DEVICE])
+            torch.cuda.synchronize()
+            render_s = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            for (mod, attr), fn in originals.items():
+                setattr(mod, attr, fn)
+        rows = [json.loads(x) for x in (run / "train_metrics.jsonl").read_text().splitlines()]
+        steps = [r for r in rows if "total" in r]
+        evals = [r for r in rows if "mean-image-loss" in r]
+        resumed = [r["step"] for r in rows[n_first:] if "total" in r]
+        print(f"  cli.train (host staging): {first_s:.2f} s; resumed (device_rotate): "
+              f"{second_s:.2f} s; cli.render: {render_s:.2f} s; launches {counts}", flush=True)
+        by_mode = {"host": [r["step_ms"] for r in steps if r["step"] <= 4],
+                   "device_rotate": [r["step_ms"] for r in steps if r["step"] > 4]}
+        for (mode, ms), marks in zip(by_mode.items(), ends):
+            wall = [round(1e3 * (b - a), 2) for a, b in zip(marks, marks[1:])]
+            print(f"  {mode} staging: ms per step (CUDA events, the steps only)"
+                  f" {[round(x, 3) for x in ms]}, median {np.median(ms):.3f}; wall ms per"
+                  f" sequence iteration after the first (staging and checkpoint write included)"
+                  f" {wall or 'none: one iteration'}", flush=True)
+        print(f"  checkpoint write ms: {[round(x, 3) for x in timed['checkpoint']]}; its payload"
+              f" built in {[round(x, 3) for x in timed['payload']]}", flush=True)
+        print(f"  host staging: each step's gather into pinned memory and copy start"
+              f" (HostPrefetch.put, host clock) ms {[round(x, 3) for x in timed['put']]}",
+              flush=True)
+        print(f"  sequence load ms (cloud, then each timestep's 27 views, per run):"
+              f" {[round(x, 3) for x in timed['load']]}", flush=True)
+        print(f"  mean-image-loss rows: {[(r['step'], round(r['mean-image-loss'], 6)) for r in evals]}",
+              flush=True)
+        vis = run / "visualizations"
+        videos = sorted(p.name for p in vis.iterdir() if p.suffix in (".mp4", ".gif"))
+        print(f"  output: {'video ' + str(videos) if videos else 'frames only (no imageio)'}",
+              flush=True)
+        if seq_it != 1:
+            fail(f"cli: the first run's checkpoint holds seq_it {seq_it}, expected 1")
+        if [r["step"] for r in steps] != [1, 2, 3, 4, 5, 6] or resumed[:1] != [5]:
+            fail(f"cli: logged steps {[r['step'] for r in steps]}, resumed {resumed}")
+        if len(evals) != 2 * (CLI_FRAMES - 1):
+            fail(f"cli: {len(evals)} mean-image-loss rows")
+        if not all(np.isfinite(r[k]) for r in steps for k in ("total", "grad_norm")) or not all(
+                np.isfinite(r["mean-image-loss"]) for r in evals):
+            fail("cli: a non-finite loss or mean-image-loss")
+        for f in ("densified_initial_gaussian_cloud_parameters.npz", "config.json",
+                  "network_params.msgpack"):
+            if not (bundle / f).is_file():
+                fail(f"cli: bundle file {f} missing")
+        if not (run / "config.json").is_file():
+            fail("cli: config.json missing")
+        worst = 0
+        for cam in ("000", "090", "180", "270", "top"):
+            for t in range(CLI_FRAMES):
+                a = read_image(bundle / "renders" / "frames" / cam / f"{t:06d}.png").astype(int)
+                b = read_image(vis / "frames" / cam / f"{t:06d}.png").astype(int)
+                if a.shape != (SERVE_SIZE[1], SERVE_SIZE[0], 3) or a.shape != b.shape:
+                    fail(f"cli: frame {cam}/{t} shapes {a.shape} {b.shape}")
+                worst = max(worst, int(np.abs(a - b).max()))
+        print(f"  cli.render frames vs cli.train's: max |d| {worst} uint8 levels", flush=True)
+        if worst > 1:
+            fail(f"cli: standalone render differs from the trainer's frames by {worst} levels")
+    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
+    check_only(counts, expected, "cli")
+    if counts["composite_bwd"] != 6 or counts["route_pairs"] != 6 or counts["composite_fwd"] < 6:
+        fail(f"cli: launches {counts}, expected 6 backward and routing launches")
+    return counts
+
+
+def knn_native_check(dev):
+    """knn_native (module docstring)."""
+    import numpy as np
+    import torch
+
+    import splatpu_torch.neighbors.knn as knn_mod
+    from splatpu_torch.neighbors import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        fail("knn_native: the native kNN library did not build")
+    build_s = time.perf_counter() - t0
+    pts = torch.from_numpy(np.random.default_rng(KNN_POINTS).uniform(
+        -1.0, 1.0, (KNN_POINTS, 3)).astype(np.float32)).to(dev)
+    calls = []
+    real = native.knn_native
+    native.knn_native = lambda *a, **kw: calls.append(1) or real(*a, **kw)
+    try:
+        t0 = time.perf_counter()
+        idx, d2 = knn_mod.knn(pts, KNN_K)
+        torch.cuda.synchronize()
+        native_s = time.perf_counter() - t0
+    finally:
+        native.knn_native = real
+    if not calls or idx.device != pts.device:
+        fail("knn_native: knn did not route 250,000 points to the native KD-tree")
+    # The port's brute force on the card at this size: what knn would run
+    # without the native route.
+    t0 = time.perf_counter()
+    bf_idx, _ = knn_mod.knn_bruteforce(pts, KNN_K)
+    torch.cuda.synchronize()
+    bruteforce_s = time.perf_counter() - t0
+    bf_apart = int((bf_idx.long() != idx.long()).sum())
+    del bf_idx
+    # The card's brute force, two ways: in the tree's own float32 arithmetic
+    # (d2 = dx dx + dy dy + dz dz of p - q, op by op; ties to the lower
+    # index, as the tree's (d2, index) heap orders them), whose neighbours
+    # must be the tree's exactly; and in float64, against which the tree's
+    # squared distances must hold 1e-6 relative (its order can differ from
+    # float64's only where two distances lie within float32 rounding).
+    t0 = time.perf_counter()
+    p64 = pts.double()
+    sq = (p64 * p64).sum(1)
+    ref_idx, ref64_idx = [], []
+    rows_of = lambda r0, m: torch.arange(r0, r0 + m, device=dev)  # noqa: E731
+    for r0 in range(0, KNN_POINTS, 512):
+        q = pts[r0:r0 + 512]
+        m = q.shape[0]
+        diff = [pts[None, :, a] - q[:, None, a] for a in range(3)]
+        d = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2]
+        d[torch.arange(m, device=dev), rows_of(r0, m)] = float("inf")
+        vals, ids = torch.topk(d, KNN_K + 8, dim=1, largest=False)
+        ids, order = torch.sort(ids, dim=1)
+        vals = torch.gather(vals, 1, order)
+        _, order = torch.sort(vals, dim=1, stable=True)
+        ref_idx.append(torch.gather(ids, 1, order)[:, :KNN_K])
+        d64 = sq[r0:r0 + m, None] + sq[None] - 2.0 * (p64[r0:r0 + m] @ p64.T)
+        d64[torch.arange(m, device=dev), rows_of(r0, m)] = float("inf")
+        ref64_idx.append(torch.topk(d64, KNN_K, dim=1, largest=False).indices)
+    ref_idx, ref64_idx = torch.cat(ref_idx), torch.cat(ref64_idx)
+    exact64 = ((p64[idx.long()] - p64[:, None]) ** 2).sum(-1)
+    torch.cuda.synchronize()
+    brute_s = time.perf_counter() - t0
+    mismatches = int((idx.long() != ref_idx).sum())
+    near_ties = int((idx.long() != ref64_idx).sum())
+    rel = float(((d2.double() - exact64).abs() / exact64).max())
+    print(f"  {KNN_POINTS} points, k {KNN_K}: library build {build_s:.2f} s, knn (native"
+          f" KD-tree, host, copies included) {native_s:.2f} s, knn_bruteforce on the card"
+          f" {bruteforce_s:.2f} s (entries ordered otherwise than the tree's: {bf_apart}),"
+          f" the reference brute forces on the card {brute_s:.2f} s;"
+          f" index mismatches against the float32 brute force {mismatches}; squared distances"
+          f" max relative {rel:.3e} against float64; entries ordered otherwise than by float64"
+          f" distance (near ties) {near_ties}", flush=True)
+    if mismatches:
+        fail(f"knn_native: {mismatches} indices differ from the brute force's")
+    if not rel <= 1e-6:
+        fail(f"knn_native: squared distances {rel:.3e} relative from float64's, > 1e-6")
+
+
 def main() -> int:
     import torch
 
@@ -726,6 +1133,16 @@ def main() -> int:
         ).stdout.strip().splitlines()[0]
         kind = torch.cuda.get_device_name(0)
         print(f"  card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+        from splatpu_torch.io.images import have_pil
+        from splatpu_torch.io.video import have_imageio
+
+        have = {"PIL": have_pil(), "imageio": have_imageio(),
+                "tqdm": importlib.util.find_spec("tqdm") is not None}
+        print("  image I/O and progress: " + ", ".join(
+            f"{k} {'present' if v else 'absent'}" for k, v in have.items())
+            + ("" if have["PIL"] else "; images through the port's PNG codec")
+            + ("" if have["imageio"] else "; frames as PNG through the codec, no video"),
+            flush=True)
 
     with phase("build", 200):
         _build.load_library()
@@ -756,7 +1173,7 @@ def main() -> int:
         print(f"  {w}x{h}, V=5, pairs/view max {int(k['end'][:, -1].max())}", flush=True)
         check_errors(compare(got, ref), f"{w}x{h}")
 
-    with phase("compare_bwd", 240):
+    with phase("compare_bwd", 300):
         for w, h in (COMPARE_SIZE, SERVE_SIZE):
             case = bwd_case(args, rig_cams(dev, w, h, 5), dev)
             compare_table_bwd(f"K2 {w}x{h}, V=5", case, composite.composite_bwd_cuda,
@@ -877,7 +1294,7 @@ def main() -> int:
             "train_padded", cloud, views,
             dataclasses.replace(new_cfg, renderer="cuda_padded", binning=padded_binning),
             ("padded_fwd", "padded_bwd", "route_pairs"), new_steps)
-        del views
+
 
     with phase("measure", 300):
         _, k = composite_inputs(args, orbit, served["serve"][1]["binning"])
@@ -925,14 +1342,9 @@ def main() -> int:
         r_plain_ms = cuda_ms(lambda: route.route_pairs_plain(rows, pos, offsets, counts),
                              reps=5, warmup=1)
         r_lib_ms = cuda_ms(library, reps=50, warmup=5)
-        evals, live = bwd_work(kin[2], last, geo, n_live)
-        hw = geo["width"] * geo["height"]
+        evals, live, b_bytes, b_ops, b_tb, b_to = table_bwd_bound(kin, geo, last, n_live)
         pairs = int(kin[3][:, -1].sum())
         n_kept = int(kept.sum())
-        b_bytes = 4 * (v * n * rec + pairs + 2 * kin[2].numel() + c + v * hw * (c + 4)
-                       + v * p * rec)
-        b_ops = OPS_PER_EVAL * evals + ops_bwd_per_live(c) * live
-        b_tb, b_to = 1e3 * b_bytes / PEAK_BYTES_S, 1e3 * b_ops / PEAK_FP32_FLOPS
         r_bytes = 4 * (n_kept * rec + v * p + 2 * v * n + v * n * rec)
         r_ops = n_kept * rec
         r_tb, r_to = 1e3 * r_bytes / PEAK_BYTES_S, 1e3 * r_ops / PEAK_FP32_FLOPS
@@ -1050,6 +1462,49 @@ def main() -> int:
                    bound=(max(rp_tb, rp_to), rp_tb, rp_to), library_ms=rp_lib_ms)
         del case, rows, routed, routed_ref, index, slot_rows
 
+    # The 8 and 24 px tiles run after the serve, train and measure phases,
+    # so that those run after the same work as before these tiles existed.
+    with phase("bwd_tiles", 300):
+        w, h = COMPARE_SIZE
+        cams5 = rig_cams(dev, w, h, 5)
+        for tile in NEW_BWD_TILES:
+            b = demand_binning(*measure_binning_demand(args, cams5, tile=tile), tile=tile)
+            for kernel, label, fwd_name, bwd_name in (("grid", "K2", "composite_fwd", "composite_bwd"),
+                                                      ("manual", "K4", "composite_manual_fwd",
+                                                       "composite_manual_bwd")):
+                case = table_case(args, cams5, dataclasses.replace(b, kernel=kernel),
+                                  getattr(composite, f"{fwd_name}_cuda"))
+                torch.cuda.synchronize()
+                where = f"{label} {w}x{h}, V=5, tile {tile}"
+                ref = getattr(composite, f"{fwd_name}_plain")(*case["kin"], **case["geo"])
+                check_errors(compare(case["out"], ref), f"{where}, forward")
+                compare_table_bwd(where, case, getattr(composite, f"{bwd_name}_cuda"),
+                                  getattr(composite, f"{bwd_name}_plain"), ("cuda", kernel))
+                del case, ref
+        k2_tiles = {}
+        cams5 = rig_cams(dev, *SERVE_SIZE, 5)
+        for tile in NEW_BWD_TILES:
+            b = demand_binning(*measure_binning_demand(args, cams5, tile=tile), tile=tile)
+            case = bwd_case(args, cams5, dev, binning=b)
+            k2_tiles[str(tile)] = measure_bwd_tile(
+                f"K2 tile {tile} at the training shapes", case, composite.composite_fwd_plain,
+                composite.composite_bwd_cuda, composite.composite_bwd_plain)
+            del case
+
+    # These phases run after the measure phases, so that the kernels are
+    # timed after the same work as before the phases existed.
+    with phase("train_options", 300):
+        print(f"  depth cut: {STAGING_ITERATIONS} iterations x {OPTION_TIMESTEPS} timesteps per"
+              f" staging mode, 1 iteration for map and bfloat16", flush=True)
+        trained.update(options_paths(cloud, views, base_cfg))
+        del views
+
+    with phase("cli", 420):
+        trained["cli"] = (cli_path(dev, cloud, head), None)
+
+    with phase("knn_native", 180):
+        knn_native_check(dev)
+
     for k, v in ptxas_summary(_build.build_log).items():
         print(f"  ptxas {k}: {v}", flush=True)
     launched = {path: counts for path, (counts, _) in {**served, **trained}.items()}
@@ -1064,7 +1519,7 @@ def main() -> int:
                      **k1, train=k1_train),
         kernel_entry("composite_bwd", "splatpu_torch/csrc/composite_bwd.cu",
                      "splatpu/render/exact.py:994 (_bwd_kernel_grid)", by_path("composite_bwd"),
-                     **k2),
+                     **k2, tiles=k2_tiles),
         kernel_entry("route_pairs", "splatpu_torch/csrc/route_pairs.cu",
                      "splatpu/render/exact.py:1320 (_cumsum_pairs_pallas)", routes_exact, **k3),
         kernel_entry("route_pairs_padded", "splatpu_torch/csrc/route_pairs.cu",

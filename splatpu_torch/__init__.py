@@ -5,25 +5,34 @@ observable behaviour module by module (same module names where that helps a
 reader find the counterpart) and replaces each Pallas TPU kernel with a
 kernel written by hand for Hopper (``csrc/``, built by ``_build.py``).
 
-Ported so far, the serving path and the single-device stage-2 trainer:
+Ported so far, the serving path, the single-device stage-2 trainer and
+the stage-2 command line:
 
 - ``core``      cloud / camera / render-arg types, quaternions, positional
                 encoding, EWA preprocess, SSIM.
 - ``render``    exact tile binning (host-side torch), the forward and
-                backward composites (CUDA kernels ``csrc/composite_fwd.cu``
-                and ``csrc/composite_bwd.cu``) and the gradient routing
-                (``csrc/route_pairs.cu``), each beside its plain PyTorch
-                version, inside one ``torch.autograd.Function``; the naive
-                oracle renderer; the public ``render``.
-- ``dynamics``  the deformation network, state encoding, rigidity.
-- ``neighbors`` exact brute-force kNN.
+                backward composites (CUDA kernels ``csrc/composite_*.cu``)
+                and the gradient routing (``csrc/route_pairs.cu``), each
+                beside its plain PyTorch version, inside one
+                ``torch.autograd.Function``; the padded pair stream and its
+                composite (``csrc/padded_*.cu``); the naive oracle
+                renderer; the public ``render``.
+- ``dynamics``  the deformation network (float32 or bfloat16), state
+                encoding, rigidity.
+- ``neighbors`` exact kNN: brute force, and the repo's native KD-tree
+                (``native/knn``) above 200,000 points.
 - ``train``     losses, the Adam / warmup-cosine optimizer, the stage-2
-                trainer, rollout and orbit-camera inference.
-- ``data``      ``ViewData`` and look-at cameras.
-- ``io``        the npz cloud reader and a flax-msgpack reader (network and
-                Adam state).
+                trainer (view staging, checkpoints, resume), rollout and
+                orbit-camera inference with real-view evaluation.
+- ``data``      the Panoptic-layout sequence loader and writer, random
+                clouds, look-at cameras.
+- ``io``        npz clouds, flax-msgpack checkpoints (reader and writer),
+                the deformation bundle, images (PIL or a PNG codec), frames
+                and video.
+- ``obs``       the metrics logger, PSNR, timing and tracing helpers.
+- ``cli``       ``train`` and ``render`` (and the binning flags).
 - ``tools``     profilers of serving and training, the config-3 training
-                scene.
+                scene, comparisons with another commit's kernels.
 
 Entry points take ``device`` (default ``"cuda"``); the CPU path uses each
 kernel's plain version and exists for tests.

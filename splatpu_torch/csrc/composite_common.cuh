@@ -41,8 +41,8 @@
 // padded to a multiple of 4 floats, so a pair's geometry is one 16-byte
 // and one 8-byte shared load, broadcast to the warp.
 //
-// Backward.  4 pixels per thread at 16 and 32 px tiles (one column, rows
-// ROWS apart).  It starts at the tile's largest `last`, since pairs behind
+// Backward.  Several pixels per thread (one column, rows ROWS apart): 4 at
+// 16 and 32 px tiles, 3 at 24 px, 2 at 8 px, so a block is whole warps.  It starts at the tile's largest `last`, since pairs behind
 // it have zero gradient, and a warp skips the pairs behind its own largest.
 // A pair belongs to one (tile, view), so one block owns its row; the sum
 // over the tile's pixels is formed in three fixed-order steps: each thread
@@ -249,12 +249,11 @@ __host__ __device__ constexpr int fwd_min_blocks(int tile, int c) {
 }
 __host__ __device__ constexpr int fwd_stride(int rec) { return (rec + 3) / 4 * 4; }
 
-// The tiles each body takes: the forward those of JAX's exact kernels up
-// to 32 px, the backward 16 and 32.  with_tile calls
-// fn(std::integral_constant<int, TILE>{}) for the TILE of the set that
-// equals `tile`; false if none does.
+// The tiles both bodies take: those of JAX's exact kernels up to 32 px.
+// with_tile calls fn(std::integral_constant<int, TILE>{}) for the TILE of
+// the set that equals `tile`; false if none does.
 using FwdTiles = std::integer_sequence<int, 8, 16, 24, 32>;
-using BwdTiles = std::integer_sequence<int, 16, 32>;
+using BwdTiles = FwdTiles;
 template <int... TILES, typename Fn>
 bool with_tile(std::integer_sequence<int, TILES...>, int tile, Fn&& fn) {
   return ((tile == TILES ? (fn(std::integral_constant<int, TILES>{}), true) : false) || ...);
@@ -444,15 +443,16 @@ __device__ __forceinline__ void composite_fwd_body(const Walk& w, const FwdOut& 
   }
 }
 
-// The backward's launch shape: BWD_PIX pixels per thread, so a 32 px tile
-// runs 256 threads (8 warps) and a 16 px tile 64 (2 warps), and
+// The backward's launch shape: bwd_pix(tile) pixels of one column per
+// thread, so whole warps: 4 at 32 px (256 threads, 8 warps) and 16 px (64,
+// 2 warps), 3 at 24 px (192, 6 warps), 2 at 8 px (32, one warp); and
 // BWD_BATCH pairs per shared-memory batch.  Blocks per SM the registers
 // must leave room for (launch bounds): 768 threads up to 5 channels, which
 // caps a thread at 85 registers; 512, so 128 registers, for the 6- to
-// 9-channel state.
-constexpr int BWD_PIX = 4;
+// 9-channel state (24 px: 384, so 170).
 constexpr int BWD_BATCH = 32;
-__host__ __device__ constexpr int bwd_threads(int tile) { return tile * tile / BWD_PIX; }
+__host__ __device__ constexpr int bwd_pix(int tile) { return tile == 8 ? 2 : tile == 24 ? 3 : 4; }
+__host__ __device__ constexpr int bwd_threads(int tile) { return tile * tile / bwd_pix(tile); }
 __host__ __device__ constexpr int bwd_min_blocks(int tile, int c) {
   return (c <= 5 ? 768 : 512) / bwd_threads(tile);
 }
@@ -500,7 +500,7 @@ __device__ __forceinline__ int reduce_scatter_row(int lane) {
 }
 
 // Backward composite of block (tile, view), bwd_threads(TILE) threads of
-// BWD_PIX pixels each: per pixel, from the forward's `last` back to the
+// bwd_pix(TILE) pixels each: per pixel, from the forward's `last` back to the
 // tile's start,
 //   T_excl  rebuilt from the final T by dividing by (1 - alpha) per live pair;
 //   suffix  starts at T_final * (g_T + sum_c g_img_c * bg_c) and gathers
@@ -517,7 +517,7 @@ __device__ __forceinline__ int reduce_scatter_row(int lane) {
 template <int C, Family F, int TILE>
 __device__ __forceinline__ void composite_bwd_body(const Walk& w, const BwdIn& g) {
   constexpr int REC = REC_GEOM + C;
-  constexpr int PIX = BWD_PIX;
+  constexpr int PIX = bwd_pix(TILE);
   constexpr int BATCH = BWD_BATCH;
   constexpr int NT = bwd_threads(TILE);
   constexpr int NWARPS = NT / 32;
@@ -541,6 +541,7 @@ __device__ __forceinline__ void composite_bwd_body(const Walk& w, const BwdIn& g
   // (walking back to T_excl), the suffix sum S, the cotangents.  Pixels
   // outside the image have last = -1 and never go live.
   constexpr int ROWS = NT / TILE;
+  static_assert(NT % 32 == 0 && NT % TILE == 0 && ROWS * PIX == TILE, "whole warps, whole columns");
   const int x0 = (static_cast<int>(blockIdx.x) % w.tiles_x) * TILE;
   const int y0 = (static_cast<int>(blockIdx.x) / w.tiles_x) * TILE;
   const int px = x0 + tid % TILE;

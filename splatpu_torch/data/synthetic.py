@@ -1,11 +1,67 @@
-"""Synthetic cameras (port of ``splatpu/data/synthetic.py:52-85``)."""
+"""Procedural scenes: random Gaussian clouds and look-at cameras (port of
+``splatpu/data/synthetic.py``).
+
+``make_random_cloud`` draws the JAX package's distributions from
+``numpy.random.default_rng(seed)``: the numbers differ from the JAX
+package's ``jax.random`` draws, so tests that hold the two packages
+against each other hand both the same numpy arrays.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from splatpu_torch.core.types import Camera
+from splatpu_torch.core.types import Camera, GaussianCloud
+
+
+def random_cloud_arrays(seed: int, n: int, center=(0.0, 0.0, 0.0), extent: float = 1.0,
+                        scale_range=(0.02, 0.08), fg_fraction: float = 0.7) -> dict:
+    """The raw (N, .) float32 arrays of a random cloud: means uniform in the
+    cube of half side ``extent`` around ``center``, colours uniform, unit
+    quaternions from normals, opacity logits uniform in [-1, 3], log of
+    scales uniform in ``scale_range``, foreground with probability
+    ``fg_fraction`` (segmentation (fg, 0, bg))."""
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-extent, extent, (n, 3)) + np.asarray(center)
+    colors = rng.uniform(0.0, 1.0, (n, 3))
+    quats = rng.normal(size=(n, 4))
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    opacity_logits = rng.uniform(-1.0, 3.0, (n, 1))
+    log_scales = np.log(rng.uniform(scale_range[0], scale_range[1], (n, 3)))
+    fg = (rng.uniform(size=n) < fg_fraction).astype(np.float64)
+    seg = np.stack([fg, np.zeros_like(fg), 1.0 - fg], axis=-1)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return dict(means=f32(means), colors=f32(colors), segmentation_masks=f32(seg),
+                rotation_quaternions=f32(quats), opacity_logits=f32(opacity_logits),
+                log_scales=f32(log_scales))
+
+
+def cloud_from_arrays(arrays: dict, capacity: int | None = None, device="cuda") -> GaussianCloud:
+    """A cloud from dense (N, .) arrays, padded up to ``capacity`` with dead
+    rows of benign values (identity quaternions, opacity logit -20, log
+    scale -10), as the JAX package's ``cloud_from_arrays`` pads."""
+    n = arrays["means"].shape[0]
+    cap = n if capacity is None else capacity
+    if cap < n:
+        raise ValueError(f"capacity {cap} < point count {n}")
+    fill = {"opacity_logits": -20.0, "log_scales": -10.0}
+
+    def pad(k):
+        a = np.asarray(arrays[k], np.float32)
+        block = np.full((cap - n,) + a.shape[1:], fill.get(k, 0.0), np.float32)
+        if k == "rotation_quaternions":
+            block[:, 0] = 1.0
+        return torch.from_numpy(np.concatenate([a, block])).to(device)
+
+    return GaussianCloud(alive=(torch.arange(cap) < n).to(device),
+                         **{k: pad(k) for k in arrays})
+
+
+def make_random_cloud(seed: int, n: int, capacity: int | None = None, device="cuda",
+                      **kw) -> GaussianCloud:
+    """``random_cloud_arrays(seed, n, **kw)`` as a cloud of ``capacity`` rows."""
+    return cloud_from_arrays(random_cloud_arrays(seed, n, **kw), capacity, device=device)
 
 
 def lookat_matrices(eye=(0.0, 0.0, -4.0), target=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0),

@@ -11,11 +11,17 @@ BatchNorm always normalises with the current batch's statistics (biased
 variance, eps 1e-5) and keeps no running statistics — in inference too, as
 the reference never switches its module to eval mode.  ``nn.BatchNorm1d``
 in eval mode would be wrong; ``F.batch_norm(training=True)`` without running
-buffers is exactly this.  Everything computes in float32; TF32 matmuls are
-switched off for the forward pass (and the caller's setting restored after),
-so the card computes what the CPU does; a training step wraps its forward
-and backward passes in ``no_tf32`` itself, since autograd runs the backward
-matmuls after ``forward`` has returned.
+buffers is exactly this.  By default everything computes in float32; TF32
+matmuls are switched off for the forward pass (and the caller's setting
+restored after), so the card computes what the CPU does; a training step
+wraps its forward and backward passes in ``no_tf32`` itself, since autograd
+runs the backward matmuls after ``forward`` has returned.
+
+``compute_dtype="bfloat16"`` computes as the JAX package does under it:
+the input, weights and biases cast to bfloat16, each matmul and each bias
+add rounded to bfloat16, BatchNorm in float32 with its result cast back,
+GELU and the skip adds in bfloat16, the head's output cast to float32
+before the residual.  The parameters stay float32.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ class DeformationNetConfig:
     residual_blocks: int = 3
     input_dim: int = INPUT_DIM
     output_dim: int = OUTPUT_DIM
+    compute_dtype: str = "float32"  # or "bfloat16"
     delta_scale: float = 0.01
     double_residual: bool = True
     zero_init_head: bool = False
@@ -68,7 +75,20 @@ class BatchStatNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
+        if x.dtype != torch.float32:  # normalised in float32, cast back
+            return self.forward(x.float()).to(x.dtype)
         return F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=BN_EPS)
+
+
+def _linear(fc: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    return fc(x)
+
+
+def _linear_bf16(fc: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """x @ w then + b, each rounded to bfloat16, as the JAX package's
+    ``linear`` under bfloat16."""
+    y = x @ fc.weight.to(torch.bfloat16).T
+    return y if fc.bias is None else y + fc.bias.to(torch.bfloat16)
 
 
 class ResidualBlock(nn.Module):
@@ -79,9 +99,10 @@ class ResidualBlock(nn.Module):
         self.fc2 = nn.Linear(dim, dim, bias=False)
         self.bn2 = BatchStatNorm(dim)
 
-    def forward(self, x):
-        h = F.gelu(self.bn1(self.fc1(x)))
-        h = self.bn2(self.fc2(h))
+    def forward(self, x, linear=None):
+        linear = linear or _linear
+        h = F.gelu(self.bn1(linear(self.fc1, x)))
+        h = self.bn2(linear(self.fc2, h))
         return F.gelu(h + x)
 
 
@@ -99,11 +120,18 @@ class DeformationNet(nn.Module):
 
     def forward(self, initial_means_and_rotations, encoded_initial, encoded_previous, encoded_progress):
         x = torch.cat([encoded_initial, encoded_previous, encoded_progress], dim=1)
+        if self.config.compute_dtype == "bfloat16":
+            x = x.to(torch.bfloat16)
+            linear = _linear_bf16
+        elif self.config.compute_dtype == "float32":
+            linear = _linear
+        else:
+            raise ValueError(f"unknown compute_dtype {self.config.compute_dtype!r}")
         with no_tf32():
-            x = self.fc_in(x)
+            x = linear(self.fc_in, x)
             for blk in self.blocks:
-                x = blk(x)
-            out = self.fc_out(x)
+                x = blk(x, linear)
+            out = linear(self.fc_out, x).float()
         if self.config.double_residual:
             out = out + initial_means_and_rotations
         return out
@@ -138,7 +166,9 @@ def init_deformation_net(
 def net_params_to_jax_tree(net_or_state) -> dict:
     """A ``DeformationNet`` (or its state dict) -> the JAX package's
     ``net_params`` pytree with numpy leaves (weights transposed back to
-    (in, out), ``blocks`` a list): the reverse of ``state_dict_from_jax``."""
+    (in, out), ``blocks`` a list), its keys in sorted order, as a JAX
+    pytree comes out of a jitted step and is checkpointed: the reverse of
+    ``state_dict_from_jax``."""
     sd = net_or_state.state_dict() if isinstance(net_or_state, nn.Module) else net_or_state
 
     def a(name, transpose=False):
@@ -147,17 +177,17 @@ def net_params_to_jax_tree(net_or_state) -> dict:
 
     n_blocks = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
     return {
-        "fc_in": {"w": a("fc_in.weight", True), "b": a("fc_in.bias")},
-        "fc_out": {"w": a("fc_out.weight", True), "b": a("fc_out.bias")},
         "blocks": [
             {
+                "bn1": {"beta": a(f"blocks.{i}.bn1.bias"), "gamma": a(f"blocks.{i}.bn1.weight")},
+                "bn2": {"beta": a(f"blocks.{i}.bn2.bias"), "gamma": a(f"blocks.{i}.bn2.weight")},
                 "fc1": {"w": a(f"blocks.{i}.fc1.weight", True)},
-                "bn1": {"gamma": a(f"blocks.{i}.bn1.weight"), "beta": a(f"blocks.{i}.bn1.bias")},
                 "fc2": {"w": a(f"blocks.{i}.fc2.weight", True)},
-                "bn2": {"gamma": a(f"blocks.{i}.bn2.weight"), "beta": a(f"blocks.{i}.bn2.bias")},
             }
             for i in range(n_blocks)
         ],
+        "fc_in": {"b": a("fc_in.bias"), "w": a("fc_in.weight", True)},
+        "fc_out": {"b": a("fc_out.bias"), "w": a("fc_out.weight", True)},
     }
 
 

@@ -24,7 +24,7 @@ import dataclasses
 import torch
 
 from splatpu_torch.core.quaternion import build_rotation, quat_conjugate, quat_mult, quat_normalize
-from splatpu_torch.neighbors.knn import knn_bruteforce
+from splatpu_torch.neighbors.knn import knn
 
 RIGIDITY_WEIGHT_TEMPERATURE = 2000.0
 RIGIDITY_K = 20
@@ -45,7 +45,7 @@ class ForegroundInfo:
 
 
 def build_neighbor_info(foreground_means: torch.Tensor, k: int = RIGIDITY_K) -> NeighborInfo:
-    idx, d2 = knn_bruteforce(foreground_means.detach(), k)
+    idx, d2 = knn(foreground_means.detach(), k)
     return NeighborInfo(
         indices=idx.long(), weights=torch.exp(-RIGIDITY_WEIGHT_TEMPERATURE * d2)
     )

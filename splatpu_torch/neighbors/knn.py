@@ -9,9 +9,14 @@ sort, so that among equal distances the lower index comes first, as JAX's
 ``lax.top_k`` orders them (``torch.topk`` makes no such promise, and exact
 ties are common: a densification clone starts as a copy of its source,
 and grid-like scenes are full of equidistant points).  The chunk is
-sized so that one (chunk, N) distance block stays near 256 MB.  The JAX
-package routes inputs above 200,000 points to a native KD-tree; that route
-is not ported yet, and the brute force takes every size.
+sized so that one (chunk, N) distance block stays near 256 MB.
+
+``knn`` routes inputs above ``NATIVE_THRESHOLD`` points to the native C++
+KD-tree (``neighbors/native.py``) where it builds, as the JAX package does
+with every concrete input: the points go to the host, the tree answers
+there, and the result comes back to the input's device.  Both methods are
+exact; below the threshold, or without the library, the brute force
+answers.
 """
 
 from __future__ import annotations
@@ -21,11 +26,33 @@ import torch
 from splatpu_torch.dynamics.network import no_tf32
 
 DIST_MATRIX_BUDGET_BYTES = 256 << 20
+NATIVE_THRESHOLD = 200_000
 
 
 def auto_chunk(n: int) -> int:
     rows = DIST_MATRIX_BUDGET_BYTES // max(4 * n, 1)
     return int(max(8, min(1024, (rows // 8) * 8)))
+
+
+def knn(points: torch.Tensor, k: int, chunk: int | None = None):
+    """Exact self-kNN over (N, 3) points, each point excluded: (indices (N,
+    k) int32, squared distances (N, k)), ascending; above
+    ``NATIVE_THRESHOLD`` points through the native KD-tree where it builds
+    (with k > N - 1 the real neighbours padded with index 0 and distance
+    inf, as the brute force pads), else by ``knn_bruteforce``."""
+    from splatpu_torch.neighbors import native
+
+    n = points.shape[0]
+    if n > NATIVE_THRESHOLD and native.available():
+        idx, d2 = native.knn_native(points.detach().cpu().float().numpy(), k=min(k, n - 1))
+        idx = torch.from_numpy(idx).to(points.device)
+        d2 = torch.from_numpy(d2).to(points.device)
+        if k > n - 1:
+            pad = k - idx.shape[1]
+            idx = torch.cat([idx, torch.zeros((n, pad), dtype=idx.dtype, device=idx.device)], 1)
+            d2 = torch.cat([d2, torch.full((n, pad), float("inf"), device=d2.device)], 1)
+        return idx, d2
+    return knn_bruteforce(points, k, chunk)
 
 
 def knn_bruteforce(points: torch.Tensor, k: int, chunk: int | None = None):

@@ -1,0 +1,78 @@
+"""Timing and tracing helpers (port of ``splatpu/obs/profiling.py``).
+
+- ``force_completion``: wait for the card's queued work;
+- ``time_fn``: ms per call, ``tools.measure.cuda_ms`` on a card (a host
+  clock around a synchronised run elsewhere), in batches whose spread is
+  reported;
+- ``trace``: ``torch.profiler`` over a block, its Chrome trace written to a
+  directory;
+- ``debug_nan_mode``: autograd anomaly detection over a block.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from pathlib import Path
+from typing import Callable
+
+import torch
+
+from splatpu_torch.tools.measure import cuda_ms
+
+
+def force_completion(device=None) -> None:
+    if torch.cuda.is_available() and (device is None or torch.device(device).type == "cuda"):
+        torch.cuda.synchronize(device)
+
+
+def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 10, batches: int = 2,
+            device="cuda") -> dict:
+    """{'mean_ms', 'spread_ms', 'iters', 'timer'} of ``fn(*args)``: the
+    iterations run in ``batches`` batches after ``warmup`` calls, each batch
+    timed by ``tools.measure.cuda_ms`` on a card (a host clock around a
+    synchronised batch elsewhere); ``spread_ms`` is the largest minus the
+    smallest batch mean."""
+    on_card = torch.device(device).type == "cuda"
+    for _ in range(warmup):
+        fn(*args)
+    force_completion(device if on_card else "cpu")
+    batches = max(1, min(batches, iters))
+    per = [iters // batches + (1 if i < iters % batches else 0) for i in range(batches)]
+    batch_ms = []
+    for count in per:
+        if on_card:
+            batch_ms.append(cuda_ms(lambda: fn(*args), reps=count, warmup=0))
+        else:
+            t0 = time.perf_counter()
+            for _ in range(count):
+                fn(*args)
+            batch_ms.append(1e3 * (time.perf_counter() - t0) / count)
+    return {
+        "mean_ms": sum(m * c for m, c in zip(batch_ms, per)) / iters,
+        "spread_ms": max(batch_ms) - min(batch_ms),
+        "iters": iters,
+        "timer": "cuda_events" if on_card else "host_clock",
+    }
+
+
+@contextlib.contextmanager
+def trace(log_dir):
+    """``torch.profiler`` (CPU and, with a card, CUDA activity) over the
+    block; the Chrome trace goes to ``log_dir/trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities, record_shapes=False) as prof:
+        yield prof
+    prof.export_chrome_trace(str(log_dir / "trace.json"))
+
+
+@contextlib.contextmanager
+def debug_nan_mode():
+    with torch.autograd.detect_anomaly():
+        yield

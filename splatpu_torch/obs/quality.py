@@ -1,0 +1,8 @@
+"""Image-quality metrics (port of ``splatpu/obs/quality.py``)."""
+
+import torch
+
+
+def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
+    mse = ((a - b) ** 2).mean()
+    return 10.0 * torch.log10(max_val**2 / torch.clamp(mse, min=1e-12))

@@ -67,6 +67,23 @@ def grow_for_span_overflow(config: BinningConfig, n: int) -> BinningConfig:
     )
 
 
+
+def adopt_checkpointed_budget(config: BinningConfig, ckpt_pairs: int, ckpt_span: int,
+                              n: int) -> tuple[BinningConfig, bool]:
+    """A budget grown before a checkpoint, adopted on resume: ``(config,
+    changed)``.  Either budget above the config's triggers it (a run whose
+    only growth was of the span would otherwise resume dropping splats);
+    ``big_capacity`` is not checkpointed, and span growth doubled it with
+    ``max_span``, so it is re-derived from the span ratio."""
+    if ckpt_pairs <= config.max_pairs and ckpt_span <= config.max_span:
+        return config, False
+    if ckpt_span > config.max_span:
+        ratio = max(1, ckpt_span // config.max_span)
+        config = dataclasses.replace(
+            config, big_capacity=min(config.resolved_big_capacity(n) * ratio, n))
+    return dataclasses.replace(config, max_pairs=max(ckpt_pairs, config.max_pairs),
+                               max_span=max(ckpt_span, config.max_span)), True
+
 def tile_grid(width: int, height: int, tile: int) -> tuple[int, int]:
     return -(-width // tile), -(-height // tile)
 

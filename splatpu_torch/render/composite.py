@@ -35,8 +35,9 @@ Outputs: image (V, C, H, W), depth (V, H, W), final transmittance (V, H, W)
 and the int32 position of the last contributing pair (V, H, W), -1 where
 none contributed.
 
-The backward kernels: one block per (tile, view) of 16 or 32 px, each
-thread walking its 4 pixels back to front from their forward ``last``,
+The backward kernels: one block per (tile, view) of 8, 16, 24 or 32 px,
+each thread walking 2, 4, 3 or 4 pixels of one column back to front from
+their forward ``last``,
 per-pair sums over the tile's pixels in registers, then a reduce-scatter of
 warp shuffles and a fixed-order sum across warps, no atomics.  They take the forward inputs plus the forward's final T and
 ``last`` and the cotangents ``g_img`` (V, C, H, W), ``g_depth`` and
@@ -61,7 +62,7 @@ REC_GEOM = 7
 MAX_C = 5          # K1/K2, as the TPU grid kernel's packed output
 MAX_C_MANUAL = 9   # K4: the TPU kernels' NREC - R_COLOR0
 FWD_TILES = (8, 16, 24, 32)  # the tiles the forward body takes (px)
-BWD_TILES = (16, 32)  # the tiles the backward body takes (px)
+BWD_TILES = FWD_TILES  # the tiles the backward body takes (px)
 
 LAUNCHES = 0             # kernel launches made by composite_fwd_cuda (K1)
 BWD_LAUNCHES = 0         # by composite_bwd_cuda (K2)
@@ -358,8 +359,6 @@ def _bwd_cuda(entry, max_c, table, gid, start, end, bg, tfinal, last, g_img, g_d
     _build.require_cuda(entry, tensors)
     v, c = _check_inputs(table, gid, start, end, bg, tiles_x, tiles_y, tile, max_c)
     check_bwd_inputs(tfinal, last, g_img, g_depth, g_tf, v, c, width, height)
-    if tile not in BWD_TILES:
-        raise ValueError(f"the backward kernel takes {BWD_TILES} px tiles, got {tile}")
     p = gid.shape[1]
     d_rows = torch.zeros((v, p, table.shape[2]), dtype=torch.float32, device=table.device)
     lib = _lib()

@@ -44,7 +44,6 @@ from splatpu_torch.render.binning import (
     tile_grid,
 )
 from splatpu_torch.render.composite import (
-    BWD_TILES,
     MAX_C,
     MAX_C_MANUAL,
     composite_bwd_cuda,
@@ -351,11 +350,6 @@ def render_exact(
     if impl not in ("cuda", "plain"):
         raise ValueError(f"unknown composite impl: {impl!r}")
     check_kernel_limits(config, c)
-    differentiable = torch.is_grad_enabled() and (bg.requires_grad or any(
-        getattr(args, f.name).requires_grad for f in dataclasses.fields(args)))
-    if impl == "cuda" and differentiable and config.tile not in BWD_TILES:
-        raise ValueError(f"the CUDA backward composite takes {BWD_TILES} px tiles, got"
-                         f" {config.tile}: render without gradients or at one of those tiles")
     streams, k = composite_inputs(args, camera, config)
     offsets = torch.stack([s.offsets for s in streams])
     counts = torch.stack([s.counts for s in streams])

@@ -60,10 +60,12 @@ def moved_means(means: np.ndarray, fg: np.ndarray, t: int, rot_rate: float = ROT
 
 @torch.no_grad()
 def render_targets(cloud: GaussianCloud, timesteps: int, width: int = 1280, height: int = 720,
-                   impl: str = "auto", chunk: int = 9, device="cuda"):
-    """``views_by_timestep`` for timesteps 1..T: the moved cloud rendered at
-    the rig, uint8 (3, H, W) images on the host.  The budget is sized from
-    demand at t = 0 over all cameras, doubled on overflow."""
+                   impl: str = "auto", chunk: int = 9, device="cuda", start: int = 1):
+    """``views_by_timestep`` for timesteps start..start + T - 1 (1..T by
+    default; from 0 for a sequence's frames, frame 0 the cloud unmoved): the
+    moved cloud rendered at the rig, uint8 (3, H, W) images on the host.
+    The budget is sized from demand at t = 0 over all cameras, doubled on
+    overflow."""
     device = torch.device(device)
     cloud = cloud.to(device)
     cams = rig_cameras(width, height)
@@ -74,7 +76,7 @@ def render_targets(cloud: GaussianCloud, timesteps: int, width: int = 1280, heig
     means = cloud.means.cpu().numpy()
     fg = cloud.segmentation_masks[:, 0].cpu().numpy() > 0.5
     views = []
-    for t in range(1, timesteps + 1):
+    for t in range(start, start + timesteps):
         moved = cloud.replace(means=torch.from_numpy(moved_means(means, fg, t)).to(device))
         args = activate_cloud(moved)
         imgs = []

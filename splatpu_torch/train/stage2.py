@@ -16,9 +16,17 @@ The whole step runs under ``no_tf32``: autograd runs the network's backward
 matmuls after its forward has returned, so the forward's own scope would not
 cover them.  The caller's TF32 settings are restored after each step.
 
-Not ported yet: ``view_staging`` "host" and "device_rotate", checkpoint
-writes and resume, the ``mesh_*`` distributed step, ``view_batching="map"``
-and the bfloat16 ``compute_dtype`` (the port computes in float32).
+View staging: "device" (float32 on the card), "device_u8" (uint8 there),
+"host" (the views stay in host memory; each step's sampled views are
+copied one step ahead through a pinned double buffer on a copy stream) and
+"device_rotate" (``resident_cameras`` cameras' uint8 views of every
+timestep on the card, the subset rotated every ``restage_every`` sequence
+iterations).  ``view_batching="map"`` renders the sampled views one at a
+time and takes the same sums.  Checkpoints (``checkpoint_every``,
+``checkpoint_path``) hold the network, the Adam state, the sequence
+iteration and the budget in the JAX package's layout, so a checkpoint of
+either package resumes in the other.  Not ported: the ``mesh_*``
+distributed step (ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -52,11 +60,22 @@ from splatpu_torch.dynamics.rigidity import (
     rigidity_loss,
 )
 from splatpu_torch.render.api import demand_binning, measure_binning_demand, render
-from splatpu_torch.render.binning import BinningConfig, grow_for_span_overflow
+from splatpu_torch.io.checkpoint import (
+    load_checkpoint,
+    opt_state_from_tree,
+    opt_state_to_tree,
+    save_checkpoint,
+)
+from splatpu_torch.render.binning import (
+    BinningConfig,
+    adopt_checkpointed_budget,
+    grow_for_span_overflow,
+)
 from splatpu_torch.train.losses import L1_WEIGHT, RIGIDITY_WEIGHT, SSIM_WEIGHT
 from splatpu_torch.train.optim import Stage2Adam, make_stage2_optimizer, stage2_lr_at
 
-VIEW_STAGING = ("device", "device_u8")
+VIEW_STAGING = ("device", "device_u8", "host", "device_rotate")
+VIEW_BATCHING = ("vmap", "map")
 TIMESTEP_ORDERS = ("sequential", "shuffled")
 
 
@@ -77,7 +96,12 @@ class Stage2Config:
     binning_overrides: Optional[dict] = None  # field overrides over the
                                               # demand-sized budget
     quirk_compat: bool = True
-    view_staging: str = "device"       # "device" (float32) or "device_u8"
+    compute_dtype: str = "auto"        # the network's; "auto" = float32 off a TPU
+    view_staging: str = "device"       # see VIEW_STAGING and the module docstring
+    resident_cameras: int = 8          # device_rotate: cameras resident at once
+    restage_every: int = 10            # device_rotate: sequence iterations per rotation
+    view_batching: str = "vmap"        # "vmap": one batched render; "map": one per view
+    mesh_cameras: int = 0              # > 0: the distributed step (not ported)
     steps_per_timestep: int = 1        # Adam steps per visited timestep
     timestep_order: str = "sequential"  # or "shuffled" per sequence iteration
     grow_budget_on_overflow: bool = True
@@ -85,6 +109,8 @@ class Stage2Config:
     max_budget_growths: int = 4
     binning_headroom: float = 2.0
     seed: int = 0
+    checkpoint_every: int = 0          # sequence iterations; 0 = no checkpoints
+    checkpoint_path: Optional[str] = None
     delta_scale: float = 0.01
     double_residual: bool = True
     zero_init_head: bool = False
@@ -94,6 +120,7 @@ class Stage2Config:
         return DeformationNetConfig(
             hidden_dim=self.hidden_dim,
             residual_blocks=self.residual_blocks,
+            compute_dtype="float32" if self.compute_dtype == "auto" else self.compute_dtype,
             delta_scale=self.delta_scale,
             double_residual=self.double_residual,
             zero_init_head=self.zero_init_head,
@@ -139,7 +166,10 @@ def setup(initial_cloud: GaussianCloud, config: Stage2Config, initial_net=None,
         gen = torch.Generator().manual_seed(config.seed)
         net = init_deformation_net(config.net_config(), gen, device=device)
     else:
+        # The weights are the caller's; the compute dtype is the run's.
         net = initial_net.to(device)
+        net.config = dataclasses.replace(net.config,
+                                         compute_dtype=config.net_config().compute_dtype)
     # steps_per_timestep scales the schedule, so that a k-step run still
     # completes its warmup-cosine arc over the same sequence iterations.
     k = config.steps_per_timestep
@@ -193,12 +223,22 @@ def make_step(config: Stage2Config, state: Stage2Setup, width: int, height: int)
                     updated.means[state.fg_idx], updated.rotation_quaternions[state.fg_idx],
                     state.neighbor_info, previous_fg,
                 )
-            with record_function("render"):
-                cams = Camera(w2c=w2c, K=K, width=width, height=height)
-                out = render(activate_cloud(updated), cams, impl=config.renderer, config=binning)
+            args = activate_cloud(updated)
+            # "vmap": one render of every view; "map": one render per view.
+            groups = ([slice(None)] if config.view_batching == "vmap"
+                      else [slice(i, i + 1) for i in range(w2c.shape[0])])
+            l1_sum = ssim_sum = 0.0
+            outs = []
+            for g in groups:
+                with record_function("render"):
+                    cams = Camera(w2c=w2c[g], K=K[g], width=width, height=height)
+                    out = render(args, cams, impl=config.renderer, config=binning)
+                with record_function("loss"):
+                    l1_sum = l1_sum + (out.image - images[g]).abs().mean(dim=(1, 2, 3)).sum()
+                    ssim_sum = ssim_sum + (
+                        1.0 - ssim(out.image, images[g], size_average=False)).sum()
+                outs.append(out)
             with record_function("loss"):
-                l1_sum = (out.image - images).abs().mean(dim=(1, 2, 3)).sum()
-                ssim_sum = (1.0 - ssim(out.image, images, size_average=False)).sum()
                 image_loss = L1_WEIGHT * l1_sum + SSIM_WEIGHT * ssim_sum
                 # The reference sums one identical rigidity value per view.
                 rigidity = float(w2c.shape[0]) * rig
@@ -220,31 +260,156 @@ def make_step(config: Stage2Config, state: Stage2Setup, width: int, height: int)
             "rigidity": rigidity.detach(),
             "total": total.detach(),
             "grad_norm": grad_norm,
-            "binning_overflow": out.overflowed.any().float(),
-            "span_overflow": out.span_overflowed.any().float(),
-            "pairs": out.total_pairs.max(),
+            "binning_overflow": torch.cat([o.overflowed for o in outs]).any().float(),
+            "span_overflow": torch.cat([o.span_overflowed for o in outs]).any().float(),
+            "pairs": torch.cat([o.total_pairs for o in outs]).max(),
         }
         return enc_prev, prev_fg, metrics
 
     return step
 
 
+def _to_u8(imgs: np.ndarray) -> np.ndarray:
+    """Views as uint8: uint8 views as they are (never re-scaled), float
+    views in [0, 1] rounded to the nearest level."""
+    if imgs.dtype == np.uint8:
+        return imgs
+    return np.clip(np.rint(imgs * 255.0), 0, 255).astype(np.uint8)
+
+
 def _stage(views, staging: str, device):
-    """One timestep's views -> (w2c, K, images) on the device.  uint8 views
-    are never re-scaled: "device" divides them by 255 once, "device_u8"
-    keeps them as they are and quantises float views."""
-    imgs = np.stack([v.image for v in views])
-    if staging == "device":
-        if imgs.dtype == np.uint8:
-            imgs = imgs.astype(np.float32) / 255.0
-    elif imgs.dtype != np.uint8:
-        imgs = np.clip(np.rint(imgs * 255.0), 0, 255).astype(np.uint8)
+    """One timestep's views -> (w2c, K, images): the cameras on the device;
+    the images there too for "device" (float32: uint8 views divided by 255
+    once) and "device_u8" (uint8), or on the host for "host" (as they are:
+    the step divides uint8 by 255) and "device_rotate" (uint8)."""
+    # C order: "host" and "device_rotate" gather whole views from it.
+    imgs = np.ascontiguousarray(np.stack([v.image for v in views]))
+    if staging == "device" and imgs.dtype == np.uint8:
+        imgs = imgs.astype(np.float32) / 255.0
+    elif staging in ("device_u8", "device_rotate"):
+        imgs = _to_u8(imgs)
     as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     return (
         as_t(np.stack([v.w2c for v in views]).astype(np.float32)),
         as_t(np.stack([v.K for v in views]).astype(np.float32)),
-        as_t(imgs),
+        imgs if staging in ("host", "device_rotate") else as_t(imgs),
     )
+
+
+class HostPrefetch:
+    """"host" staging: each step's sampled views copied to the device one
+    step ahead.  On a card the views are gathered into one of two pinned
+    host buffers (the whole view set is never pinned) and copied with
+    ``non_blocking`` on a copy stream; the step's stream waits on the copy's
+    event.  A buffer is refilled only after its previous copy finished."""
+
+    def __init__(self, device):
+        self.device = device
+        self.on_card = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.on_card else None
+        self.buffers = [None, None]
+        self.done = [None, None]
+        self.slot = 0
+
+    def put(self, host_images: np.ndarray, pick: np.ndarray):
+        """Start the copy of ``host_images[pick]``; returns a handle for
+        ``take``."""
+        if not self.on_card:
+            return torch.from_numpy(np.ascontiguousarray(host_images[pick])), None
+        slot, self.slot = self.slot, self.slot ^ 1
+        shape = (len(pick),) + host_images.shape[1:]
+        dtype = torch.from_numpy(host_images[:0]).dtype
+        buf = self.buffers[slot]
+        if buf is None or tuple(buf.shape) != shape or buf.dtype != dtype:
+            buf = self.buffers[slot] = torch.empty(shape, dtype=dtype, pin_memory=True)
+        elif self.done[slot] is not None:
+            self.done[slot].synchronize()
+        # mode="clip": the picks are in range, and under the default "raise"
+        # numpy gathers into a temporary buffer and copies that into ``out``.
+        np.take(host_images, pick, axis=0, out=buf.numpy(), mode="clip")
+        with torch.cuda.stream(self.stream):
+            images = buf.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        self.done[slot] = event
+        return images, event
+
+    def take(self, handle) -> torch.Tensor:
+        """The images of ``put``, ready for the current stream."""
+        images, event = handle
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            images.record_stream(stream)
+        return images
+
+
+class Rotation:
+    """"device_rotate" staging: the uint8 views of ``resident_cameras``
+    cameras at every timestep on the device, one copy per rotation.  The
+    camera order is ``default_rng(seed + 7).permutation(n_cams)``; rotation
+    ``i`` holds positions ``pos * k .. (pos + 1) * k`` of it (wrapping), pos
+    = i mod (n_cams // k), cameras sorted."""
+
+    def __init__(self, staged, config: Stage2Config, device):
+        self.staged = staged
+        self.device = device
+        self.n_cams = min(s[0].shape[0] for s in staged)
+        self.k = min(config.resident_cameras, self.n_cams)
+        self.order = np.random.default_rng(config.seed + 7).permutation(self.n_cams)
+        self.pos = -1
+        self.w2c = self.K = self.images = None
+
+    def restage(self, rot_i: int) -> None:
+        pos = rot_i % max(1, self.n_cams // self.k)
+        if pos == self.pos:
+            return
+        idx = np.sort(np.take(self.order, np.arange(pos * self.k, (pos + 1) * self.k),
+                              mode="wrap"))
+        self.images = None  # free the old subset before the new one lands
+        self.images = torch.from_numpy(np.stack([s[2][idx] for s in self.staged])).to(self.device)
+        sel = torch.from_numpy(idx).to(self.device)
+        self.w2c = torch.stack([s[0][sel] for s in self.staged])
+        self.K = torch.stack([s[1][sel] for s in self.staged])
+        self.pos = pos
+
+
+def checkpoint_payload(state: Stage2Setup, config: Stage2Config, seq_it: int,
+                       growths: int) -> dict:
+    """A stage-2 checkpoint in the JAX package's layout: ``net_params``,
+    ``opt_state``, ``seq_it``, ``max_pairs``, ``max_span`` and ``growths``
+    (int32, 0-d), in that order."""
+    from splatpu_torch.dynamics.network import net_params_to_jax_tree
+
+    i32 = lambda x: np.asarray(x, np.int32)  # noqa: E731
+    opt = state.optimizer
+    return {
+        "net_params": net_params_to_jax_tree(state.net),
+        "opt_state": opt_state_to_tree(opt.count, opt.mu, opt.nu),
+        "seq_it": i32(seq_it),
+        "max_pairs": i32(config.binning.max_pairs),
+        "max_span": i32(config.binning.max_span),
+        "growths": i32(growths),
+    }
+
+
+def restore_checkpoint(path, state: Stage2Setup, config: Stage2Config):
+    """Load a stage-2 checkpoint into ``state`` (network and Adam state):
+    ``(the sequence iteration it ended, the budget growths, its max_pairs,
+    its max_span)``.  A checkpoint of the format before budget growth (no
+    budget fields) restores with the config's budget and 0 growths."""
+    from splatpu_torch.dynamics.network import state_dict_from_jax
+
+    template = checkpoint_payload(state, config, 0, 0)
+    try:
+        restored = load_checkpoint(path, template)
+    except (KeyError, ValueError):
+        old = {k: template[k] for k in ("net_params", "opt_state", "seq_it")}
+        restored = dict(template, **load_checkpoint(path, old))
+    state.net.load_state_dict(state_dict_from_jax(restored["net_params"]))
+    state.optimizer.load_state(**opt_state_from_tree(restored["opt_state"]))
+    return (int(restored["seq_it"]), int(restored["growths"]), int(restored["max_pairs"]),
+            int(restored["max_span"]))
 
 
 def train(
@@ -254,28 +419,45 @@ def train(
     logger=None,
     initial_net: Optional[DeformationNet] = None,
     device="cuda",
+    progress: bool = False,
+    resume_from=None,
+    on_iteration=None,
 ):
     """The stage-2 training loop on one device.
 
     Returns ``(net, cloud, encoded_initial, metrics)`` like the JAX
     package's ``(net_params, cloud, encoded_initial, metrics)``; ``metrics``
     are the last step's.  ``initial_net`` (default: a fresh network seeded
-    by ``config.seed``) is trained in place and returned.  ``logger`` (an object with ``log(metrics, step)``
-    and ``flush()``) gets every step's metrics plus ``learning_rate`` (the
-    schedule at the update count the step used), ``max_pairs`` (the budget)
-    and ``step_ms`` (CUDA events on a card, the host clock elsewhere; taking
-    it synchronises).  Each visit's steps are a ``train_step`` profiler
-    range, which ends after that synchronisation when a logger is given.  View picks and the visit order are drawn from
-    ``np.random.default_rng(config.seed)`` exactly as the JAX loop draws
-    them.
+    by ``config.seed``) is trained in place and returned.  ``logger`` (an
+    object with ``log(metrics, step)`` and ``flush()``) gets every step's
+    metrics plus ``learning_rate`` (the schedule at the update count the
+    step used), ``max_pairs`` (the budget) and ``step_ms`` (CUDA events on a
+    card, the host clock elsewhere; taking it synchronises; it covers the
+    visit's steps, not the staging of its views before them, so compare
+    view stagings by the wall time between ``on_iteration`` calls).  Each visit's
+    steps are a ``train_step`` profiler range, which ends after that
+    synchronisation when a logger is given.  View picks and the visit order
+    are drawn from ``np.random.default_rng(config.seed)`` exactly as the
+    JAX loop draws them.
+
+    ``resume_from``: a stage-2 checkpoint (either package's) to continue
+    from: the network and Adam state are loaded, the loop starts at the
+    sequence iteration after the checkpoint's, the generator restarts at
+    ``default_rng(seed + start)``, and a budget the run had grown is
+    adopted.  ``on_iteration(seq_it, net, config, metrics)`` is called
+    after every sequence iteration (and its checkpoint); a truthy return
+    stops the loop.  ``progress`` shows a tqdm bar where tqdm is installed.
     """
     device = torch.device(device)
     if config.view_staging not in VIEW_STAGING:
-        raise NotImplementedError(
-            f"view_staging={config.view_staging!r}: the port stages {VIEW_STAGING}"
-        )
+        raise ValueError(f"unknown view_staging {config.view_staging!r}: one of {VIEW_STAGING}")
+    if config.view_batching not in VIEW_BATCHING:
+        raise ValueError(f"unknown view_batching {config.view_batching!r}")
     if config.timestep_order not in TIMESTEP_ORDERS:
         raise ValueError(f"unknown timestep_order {config.timestep_order!r}")
+    if config.mesh_cameras > 0:
+        raise NotImplementedError(
+            "mesh_cameras > 0: the distributed stage-2 step is not ported (ROADMAP A.5)")
     initial_cloud = compact_cloud(initial_cloud.to(device))
     v0 = views_by_timestep[0][0]
     width, height = v0.width, v0.height
@@ -296,31 +478,72 @@ def train(
     state = setup(initial_cloud, config, initial_net=initial_net, device=device)
     step_fn = make_step(config, state, width, height)
     staged = [_stage(views, config.view_staging, device) for views in views_by_timestep]
+    host = config.view_staging == "host"
+    prefetch = HostPrefetch(device) if host else None
+    rotation = Rotation(staged, config, device) if config.view_staging == "device_rotate" else None
 
     rng = np.random.default_rng(config.seed)
     t_count = config.timestep_count
     k_rep = config.steps_per_timestep
     on_card = device.type == "cuda"
-    growths = 0
+    start_it, growths = 0, 0
+    if resume_from is not None:
+        seq_it, growths, ckpt_pairs, ckpt_span = restore_checkpoint(resume_from, state, config)
+        start_it = seq_it + 1
+        rng = np.random.default_rng(config.seed + start_it)
+        adopted, changed = adopt_checkpointed_budget(config.binning, ckpt_pairs, ckpt_span,
+                                                     state.cloud.capacity)
+        if changed:
+            config = dataclasses.replace(config, binning=adopted)
+    outer = range(start_it, config.total_iterations)
+    if progress:
+        try:
+            import tqdm
+
+            # total= explicitly, so a resumed run does not show as done.
+            outer = tqdm.tqdm(outer, desc="stage2", initial=start_it,
+                              total=config.total_iterations)
+        except ImportError:
+            pass
     metrics = {}
-    for seq_it in range(config.total_iterations):
+    for seq_it in outer:
         enc_prev, prev_fg = snapshot_previous(
             state.cloud, state.fg_idx, state.neighbor_info, config.quirk_compat
         )
-        v = min(config.views_per_step, min(s[0].shape[0] for s in staged))
-        picks = [
-            rng.choice(staged[t][0].shape[0], size=v, replace=False).astype(np.int64)
-            for t in range(t_count)
-        ]
+        if rotation is not None:
+            rotation.restage(seq_it // max(1, config.restage_every))
+            v = min(config.views_per_step, rotation.k)
+            picks = [rng.choice(rotation.k, size=v, replace=False).astype(np.int64)
+                     for _t in range(t_count)]
+        else:
+            v = min(config.views_per_step, min(s[0].shape[0] for s in staged))
+            picks = [
+                rng.choice(staged[t][0].shape[0], size=v, replace=False).astype(np.int64)
+                for t in range(t_count)
+            ]
         if config.timestep_order == "shuffled":
             order = [int(x) + 1 for x in rng.permutation(t_count)]
         else:
             order = list(range(1, t_count + 1))
+        if host:
+            ahead = prefetch.put(staged[order[0] - 1][2], picks[order[0] - 1])
         for visit_i, timestep in enumerate(order):
             step_idx = seq_it * t_count + visit_i + 1
-            all_w2c, all_K, all_images = staged[timestep - 1]
+            if rotation is not None:
+                all_w2c, all_K, all_images = (rotation.w2c[timestep - 1],
+                                              rotation.K[timestep - 1],
+                                              rotation.images[timestep - 1])
+            else:
+                all_w2c, all_K, all_images = staged[timestep - 1]
             pick = torch.from_numpy(picks[timestep - 1]).to(device)
-            w2c, K, images = all_w2c[pick], all_K[pick], all_images[pick]
+            w2c, K = all_w2c[pick], all_K[pick]
+            if host:
+                images = prefetch.take(ahead)
+                if visit_i + 1 < t_count:
+                    nxt = order[visit_i + 1]
+                    ahead = prefetch.put(staged[nxt - 1][2], picks[nxt - 1])
+            else:
+                images = all_images[pick]
             with record_function("train_step"):
                 if on_card:
                     marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -378,6 +601,12 @@ def train(
                         f"max_pairs={config.binning.max_pairs} after {growths} growths"
                         " — renders are dropping splats", stacklevel=2,
                     )
+        if (config.checkpoint_every and config.checkpoint_path
+                and (seq_it + 1) % config.checkpoint_every == 0):
+            save_checkpoint(config.checkpoint_path,
+                            checkpoint_payload(state, config, seq_it, growths))
+        if on_iteration is not None and on_iteration(seq_it, state.net, config, metrics):
+            break
     if logger is not None:
         logger.flush()
     return state.net, state.cloud, state.encoded_initial, metrics

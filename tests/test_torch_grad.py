@@ -102,6 +102,24 @@ def test_render_gradients_match_jax(scene, jax_grads, tile, ref_impl, impl):
         np.testing.assert_allclose(got[k] / scale, ref / scale, rtol=0, atol=GRAD_ATOL, err_msg=k)
 
 
+@pytest.mark.parametrize("tile", [8, 24])
+def test_plain_gradients_at_8_and_24_px_match_jax(tile):
+    """The plain backward version at the tiles the CUDA backward body took
+    last (8 and 24 px; 48 is no multiple of 24, so its last tile column is
+    cut) against JAX's pallas gradients there, scaled, atol GRAD_ATOL."""
+    cloud_np = np_cloud(0, 48)
+    cloud = jax_cloud(cloud_np)
+    cam = jax_camera(*np_lookat(EYE, W, H), W, H)
+    ref = jax_grad({k: getattr(cloud, k) for k in PARAMS}, cloud, cam, "pallas",
+                   JBinningConfig(**cfg(tile)))
+    got = port_grads(cloud_np, "plain", tile)
+    for k in PARAMS:
+        r = np.asarray(ref[k])
+        scale = np.abs(r).max() + 1e-8
+        assert np.abs(r).max() > 0, k
+        np.testing.assert_allclose(got[k] / scale, r / scale, rtol=0, atol=GRAD_ATOL, err_msg=k)
+
+
 def test_bg_gradient_matches_jax(scene):
     def jloss(bg):
         out = jax_render(jt.activate_cloud(jax_cloud(scene)), jax_camera(*np_lookat(EYE, W, H), W, H),
@@ -214,13 +232,12 @@ def test_routing_matches_pallas_cumsum():
 
 @pytest.mark.parametrize("grad_enabled", [True, False])
 def test_cuda_backward_tile_refused_before_render(grad_enabled):
-    """A differentiable render through the CUDA kernels at a tile the
-    backward body does not take (8 px) is refused before it bins; without
-    gradients it goes on to the forward kernel's wrapper, which refuses CPU
-    tensors."""
+    """The CUDA backward body takes 8 px tiles like the forward, so a render
+    through the CUDA kernels at 8 px is not refused before it bins, with
+    gradients or without: it goes on to the forward kernel's wrapper, which
+    refuses CPU tensors."""
     c = torch_cloud(np_cloud(0, 48))
     args = tt.activate_cloud(c.replace(means=c.means.clone().requires_grad_(True)))
     cam = tt.stack_cameras([torch_camera(*np_lookat(EYE, W, H), W, H)])
-    match = "backward composite takes" if grad_enabled else "CUDA tensors only"
-    with torch.set_grad_enabled(grad_enabled), pytest.raises(ValueError, match=match):
+    with torch.set_grad_enabled(grad_enabled), pytest.raises(ValueError, match="CUDA tensors only"):
         render(args, cam, bg=torch.from_numpy(BG), impl="cuda", config=BinningConfig(**cfg(8)))

@@ -1,7 +1,7 @@
 """The CUDA composite kernels (K1/K2, K4 under kernel="manual", K5 of the
 padded path; forward and backward) and the routing kernel against their
 plain PyTorch versions, on the card: the forward body at 8, 16, 24 and 32
-px tiles with ``last`` identical, the backward body at 16 and 32 px tiles,
+px tiles with ``last`` identical, the backward body at the same tiles,
 1 to 9 channels and image sizes that cut the last tiles; the routing in
 both slot modes, 8 to 16 rows, slot runs up to 512, dropped and clipped
 slots; each bitwise identical across two launches.
@@ -90,7 +90,8 @@ def scaled_err(a, b):
 
 @pytest.mark.parametrize(
     "n,views,width,height,tile,channels",
-    [(300, 1, 48, 32, 16, 3), (3000, 3, 100, 70, 32, 3), (1500, 2, 64, 64, 32, 1)],
+    [(300, 1, 48, 32, 16, 3), (3000, 3, 100, 70, 32, 3), (1500, 2, 64, 64, 32, 1),
+     (1500, 2, 64, 48, 8, 3), (3000, 3, 100, 70, 24, 3)],
 )
 def test_backward_kernels_match_plain(cuda, n, views, width, height, tile, channels):
     import splatpu_torch.render.route as route
@@ -314,13 +315,15 @@ def test_routing_modes_match_plain(cuda, padded, r):
 BWD_CASES = [("composite_bwd", 16, c) for c in (1, 3, 5)] + [
     ("composite_bwd", 32, c) for c in (1, 3, 5)] + [
     ("composite_manual_bwd", t, c) for t in (16, 32) for c in (1, 3, 5, 9)] + [
-    ("padded_bwd", 16, c) for c in (1, 3, 5, 9)]
+    ("padded_bwd", 16, c) for c in (1, 3, 5, 9)] + [
+    ("composite_bwd", t, c) for t in (8, 24) for c in (1, 3, 5)] + [
+    ("composite_manual_bwd", t, c) for t in (8, 24) for c in (3, 9)]
 
 
 @pytest.mark.parametrize("kernel,tile,channels", BWD_CASES)
 def test_backward_body_matches_plain(cuda, kernel, tile, channels):
     """Each backward kernel against its plain version on 100x70 images
-    (neither tile size divides them), rows 1e-4 scaled per row, bitwise
+    (no tile size divides them), rows 1e-4 scaled per row, bitwise
     identical across two launches."""
     import splatpu_torch.render.padded as padded
     from splatpu_torch.render.binning import build_pair_stream

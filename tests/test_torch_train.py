@@ -4,13 +4,20 @@ state carried across from a JAX checkpoint.
 - 2 timesteps x 2 sequence iterations of both trainers from the same
   initial network (``initial_net`` carries the JAX init across), the same
   numpy cloud and views, the JAX renderer "pallas" (interpret mode): the
-  per-step losses, the final parameters and the last metrics;
+  per-step losses, the final parameters and the last metrics, under each
+  view staging ("device", "device_u8", "host", "device_rotate" with a
+  rotation every sequence iteration) and view batching ("vmap", "map");
+- resume: JAX trains 2 of 3 sequence iterations writing a checkpoint, then
+  JAX and the port each resume from that file to the third, step for step;
+  a checkpoint the port writes restores in JAX's ``load_checkpoint``;
+- an ``on_iteration`` early stop; an unknown ``view_staging`` refused;
 - the Adam state of runs/config3_100k_r5/stage2_ckpt.msgpack read by the
   port (no flax) bit-exact against flax's reader, and one Adam step from
   that state against optax's;
 - view staging: uint8 views are never re-scaled.
 """
 
+import dataclasses
 from pathlib import Path
 
 import jax
@@ -33,7 +40,7 @@ from splatpu_torch.dynamics.network import (
     net_params_to_jax_tree,
     state_dict_from_jax,
 )
-from splatpu_torch.io.checkpoint import load_stage2_opt_state
+from splatpu_torch.io.checkpoint import load_checkpoint, load_stage2_opt_state
 from _torch_scenes import jax_cloud, np_cloud, np_lookat, torch_cloud
 
 torch.set_num_threads(1)
@@ -71,51 +78,146 @@ def views(seed, u8):
     return out
 
 
-@pytest.mark.parametrize("order,staging,u8,k", [
-    ("sequential", "device", False, 1),
-    ("shuffled", "device_u8", True, 2),
-])
-def test_train_matches_jax(order, staging, u8, k):
-    cloud = np_cloud(11, 256)
-    vs = views(12, u8)
-    common = dict(total_iterations=2, warmup_iterations=1, hidden_dim=32, residual_blocks=2,
-                  views_per_step=2, timestep_count=2, view_staging=staging,
-                  steps_per_timestep=k, timestep_order=order, overflow_check_every=1, seed=3)
-    jcfg = js2.Stage2Config(renderer="pallas", compute_dtype="float32", **common)
-    tcfg = ts2.Stage2Config(renderer="plain", **common)
-    j_log, t_log = Recorder(), Recorder()
-    j_params, j_cloud, _, j_met = js2.train(
-        jax_cloud(cloud), [[jds.ViewData(**v) for v in per_t] for per_t in vs], jcfg,
-        logger=j_log)
-    init = jax.tree.map(np.asarray, jinit(jax.random.key(3), jcfg.net_config()))
+def port_net(jcfg, seed=3):
+    """The JAX package's initial network of ``jcfg`` as a ``DeformationNet``
+    (and its numpy tree)."""
+    init = jax.tree.map(np.asarray, jinit(jax.random.key(seed), jcfg.net_config()))
     sd = state_dict_from_jax(init)
     net = DeformationNet(net_config_for(sd))
     net.load_state_dict(sd)
-    t_net, t_cloud, _, t_met = ts2.train(
-        torch_cloud(cloud), [[tds.ViewData(**v) for v in per_t] for per_t in vs], tcfg,
-        logger=t_log, initial_net=net, device="cpu")
+    return net, init
 
-    assert t_cloud.capacity == j_cloud.capacity == 256
-    steps = [s for s, _ in j_log.rows]
-    assert [s for s, _ in t_log.rows] == steps == [1, 2, 3, 4]
-    for (_, jm), (_, tm) in zip(j_log.rows, t_log.rows):
+
+def assert_steps_match(j_rows, t_rows):
+    """Per-step losses 1e-5 relative, the learning rate exactly, no
+    overflow, gradient norms 1e-3 relative."""
+    assert [s for s, _ in t_rows] == [s for s, _ in j_rows]
+    for (_, jm), (_, tm) in zip(j_rows, t_rows):
         for key in ("total", "l1", "ssim", "rigidity"):
             assert tm[key] == pytest.approx(jm[key], rel=1e-5, abs=1e-8), key
         assert tm["learning_rate"] == jm["learning_rate"]
         assert tm["binning_overflow"] == jm["binning_overflow"] == 0.0
         assert tm["grad_norm"] == pytest.approx(jm["grad_norm"], rel=1e-3)
-    # After 4 x k Adam steps the parameters agree to a small part of how far
-    # they moved.
+
+
+def assert_params_match(j_params, t_net, start):
+    """The parameters agree to 2e-2 of how far they moved from ``start``."""
     got = net_params_to_jax_tree(t_net)
-    for (path, want), g, start in zip(
+    for (path, want), g, s0 in zip(
         jax.tree_util.tree_leaves_with_path(j_params), jax.tree.leaves(got),
-        jax.tree.leaves(init),
+        jax.tree.leaves(start),
     ):
-        moved = np.abs(np.asarray(want) - start).max()
+        moved = np.abs(np.asarray(want) - s0).max()
         assert moved > 0, jax.tree_util.keystr(path)
         np.testing.assert_allclose(g, np.asarray(want), rtol=0, atol=2e-2 * moved,
                                    err_msg=jax.tree_util.keystr(path))
+
+
+def both_views(vs):
+    return ([[jds.ViewData(**v) for v in per_t] for per_t in vs],
+            [[tds.ViewData(**v) for v in per_t] for per_t in vs])
+
+
+@pytest.mark.parametrize("order,staging,u8,k,extra", [
+    ("sequential", "device", False, 1, {}),
+    ("shuffled", "device_u8", True, 2, {}),
+    ("sequential", "host", False, 1, {}),
+    ("shuffled", "device_rotate", True, 1, {"resident_cameras": 2, "restage_every": 1}),
+    ("sequential", "device", False, 1, {"view_batching": "map"}),
+], ids=["device", "device_u8", "host", "device_rotate", "map"])
+def test_train_matches_jax(order, staging, u8, k, extra):
+    cloud = np_cloud(11, 256)
+    j_views, t_views = both_views(views(12, u8))
+    common = dict(total_iterations=2, warmup_iterations=1, hidden_dim=32, residual_blocks=2,
+                  views_per_step=2, timestep_count=2, view_staging=staging,
+                  steps_per_timestep=k, timestep_order=order, overflow_check_every=1, seed=3,
+                  **extra)
+    jcfg = js2.Stage2Config(renderer="pallas", compute_dtype="float32", **common)
+    tcfg = ts2.Stage2Config(renderer="plain", **common)
+    j_log, t_log = Recorder(), Recorder()
+    j_params, j_cloud, _, j_met = js2.train(jax_cloud(cloud), j_views, jcfg, logger=j_log)
+    net, init = port_net(jcfg)
+    t_net, t_cloud, _, t_met = ts2.train(torch_cloud(cloud), t_views, tcfg, logger=t_log,
+                                         initial_net=net, device="cpu")
+
+    assert t_cloud.capacity == j_cloud.capacity == 256
+    assert [s for s, _ in j_log.rows] == [1, 2, 3, 4]
+    assert_steps_match(j_log.rows, t_log.rows)
+    # After 4 x k Adam steps the parameters agree to a small part of how far
+    # they moved.
+    assert_params_match(j_params, t_net, init)
     assert float(t_met["total"]) == pytest.approx(float(j_met["total"]), rel=1e-5)
+
+
+def test_resume_from_jax_checkpoint_matches_jax(tmp_path):
+    """JAX trains sequence iterations 0 and 1 of 3, checkpointing each, and
+    stops; JAX and the port resume from that file (seq_it 1) and train
+    iteration 2: the same steps (5, 6), losses and parameters.  Then the
+    port's own checkpoint of iteration 2 restores in JAX's
+    ``load_checkpoint`` with JAX's template, equal to the port's state."""
+    from splatpu.io.checkpoint import load_checkpoint as jax_load_checkpoint
+
+    cloud = np_cloud(11, 256)
+    j_views, t_views = both_views(views(12, False))
+    ckpt = tmp_path / "jax_ckpt.msgpack"
+    common = dict(total_iterations=3, warmup_iterations=1, hidden_dim=32, residual_blocks=2,
+                  views_per_step=2, timestep_count=2, overflow_check_every=1, seed=3,
+                  checkpoint_every=1)
+    jcfg = js2.Stage2Config(renderer="pallas", compute_dtype="float32",
+                            checkpoint_path=str(ckpt), **common)
+    js2.train(jax_cloud(cloud), j_views, jcfg, on_iteration=lambda it, *a: it == 1)
+    start = jax.tree.map(np.asarray,
+                         serialization.msgpack_restore(ckpt.read_bytes())["net_params"])
+    start = dict(start, blocks=[start["blocks"][str(i)] for i in range(len(start["blocks"]))])
+
+    j_log, t_log = Recorder(), Recorder()
+    j_params, *_ = js2.train(jax_cloud(cloud), j_views,
+                             dataclasses.replace(jcfg, checkpoint_path=None),
+                             logger=j_log, resume_from=str(ckpt))
+    port_ckpt = tmp_path / "port_ckpt.msgpack"
+    tcfg = ts2.Stage2Config(renderer="plain", checkpoint_path=str(port_ckpt), **common)
+    t_net, *_ = ts2.train(torch_cloud(cloud), t_views, tcfg, logger=t_log,
+                          resume_from=str(ckpt), device="cpu")
+    assert [s for s, _ in j_log.rows] == [5, 6]
+    assert_steps_match(j_log.rows, t_log.rows)
+    assert_params_match(j_params, t_net, start)
+
+    template = {
+        "net_params": jinit(jax.random.key(0), jcfg.net_config()),
+        "opt_state": joptim.make_stage2_optimizer(1e-3, 2, 6).init(
+            jinit(jax.random.key(0), jcfg.net_config())),
+        "seq_it": jnp.int32(0), "max_pairs": jnp.int32(0), "max_span": jnp.int32(0),
+        "growths": jnp.int32(0),
+    }
+    restored = jax_load_checkpoint(port_ckpt, template)
+    assert int(restored["seq_it"]) == 2 and int(restored["growths"]) == 0
+    assert int(restored["opt_state"][0].count) == int(restored["opt_state"][1].count) == 6
+    want = net_params_to_jax_tree(t_net)
+    for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(want),
+                            jax.tree.leaves(restored["net_params"])):
+        assert np.array_equal(np.asarray(g), w), jax.tree_util.keystr(path)
+
+
+def test_on_iteration_stops_after_its_checkpoint(tmp_path):
+    """A truthy ``on_iteration`` return ends the loop after that sequence
+    iteration, whose checkpoint is written first; the callback sees the
+    network and the resolved config."""
+    ckpt = tmp_path / "ckpt.msgpack"
+    seen = []
+
+    def stop(seq_it, net, config, metrics):
+        seen.append((seq_it, ckpt.exists(), config.binning is not None, float(metrics["total"])))
+        return seq_it == 0
+
+    log = Recorder()
+    cfg = ts2.Stage2Config(renderer="plain", total_iterations=3, warmup_iterations=1,
+                           hidden_dim=16, residual_blocks=1, views_per_step=2, timestep_count=2,
+                           checkpoint_every=1, checkpoint_path=str(ckpt))
+    ts2.train(torch_cloud(np_cloud(1, 64)), both_views(views(1, False))[1], cfg, logger=log,
+              on_iteration=stop, device="cpu")
+    assert [s for s, _ in log.rows] == [1, 2]
+    assert len(seen) == 1 and seen[0][:3] == (0, True, True) and np.isfinite(seen[0][3])
+    assert int(load_checkpoint(ckpt)["seq_it"]) == 0
 
 
 def jax_opt_tree():
@@ -183,9 +285,10 @@ def test_view_staging_keeps_uint8_levels():
     assert np.array_equal(q.numpy(), raw)
 
 
-def test_unported_staging_raises():
-    per_t = views(1, u8=False)
-    cfg = ts2.Stage2Config(view_staging="host", timestep_count=2)
-    with pytest.raises(NotImplementedError):
-        ts2.train(torch_cloud(np_cloud(1, 16)),
-                  [[tds.ViewData(**v) for v in p] for p in per_t], cfg, device="cpu")
+def test_unknown_view_staging_raises():
+    """An unknown ``view_staging`` is refused before anything runs (the JAX
+    package treats any other string like "host" without the prefetch)."""
+    cfg = ts2.Stage2Config(view_staging="hostt", timestep_count=2)
+    with pytest.raises(ValueError, match="view_staging"):
+        ts2.train(torch_cloud(np_cloud(1, 16)), both_views(views(1, False))[1], cfg,
+                  device="cpu")
