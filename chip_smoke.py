@@ -113,10 +113,52 @@ Phases, each printed with its wall time and bounded by a watchdog:
    distances within 1e-6 relative of float64's (near ties, where float32
    and float64 order two neighbours differently, are counted).
 
+15. stage1_step (stage 1 at BASELINE config 2: the 27 rig cameras at
+   1280x720, image and segmentation targets rendered on the card from the
+   config-3 truth cloud, every third truth Gaussian as the 33,528 initial
+   points, capacity factor 6.0 -> 201,216 slots): one stage-1 iteration
+   (``Stage1Steps.forward_backward``: the dual render of one view, image +
+   3 x segmentation loss, gradients) through K1, K2 and the routing and
+   through the plain versions, on the initial cloud and on the truth
+   (its means moved by a seeded N(0, 0.005^2)) padded to 201,216 slots, at
+   the default budget grown as ``fit`` grows it on overflow: the CUDA step
+   run twice, bitwise identical in every output; the loss 1e-5 relative,
+   both images 2e-5 and ``last`` identical against the plain versions;
+   every parameter's gradient and the means2d_offset collector's 1e-4
+   scaled per row, both runs differentiating the L1 term with the plain
+   run's signs (``L1Signs``: rounding flips sign(x - target) on pixels
+   whose residual is near 0; the flips and the gradients with them left
+   in are printed).
+16. stage1: ``fit`` at config 2 with the reference schedule for
+   S1_ITERATIONS iterations (a depth cut from 30,000; it crosses the
+   mutations at 500 and 600): ms per iteration (CUDA events between
+   iteration ends, and the host clock; medians of the non-mutation
+   iterations after the first 20, and each mutation's), ``n_alive`` and
+   the counts of each mutation, every budget growth, the first and last
+   losses; fails unless the loss falls, no overflow is left at the end,
+   and every iteration launched K1, K2 and the routing twice.  Then K1
+   and K2 at the stage-1 shape (one view, the fitted cloud of 201,216
+   slots) against their plain versions, timed, with their bounds.
+17. stage1_options: a scaled schedule (mutations every 10 from 10, opacity
+   reset and big prune from 20, the final prune at 30), 4 views per step,
+   the pair budget a quarter of the initial cloud's demand with an
+   overflow check every 5 iterations: 20 iterations writing a checkpoint,
+   then two resumes from it to 40, which must carry ``i``, the growths and
+   the grown budget and end bitwise equal; then 4 iterations each with
+   ``kernel="manual"`` (K4) and ``renderer="cuda_padded"`` at 16 px (K5),
+   each launching only its own kernels.
+18. cli_densify: the config-2 scene written as a sequence (one frame of 27
+   JPEG views, PNG masks, ``init_pt_cld.npz``); ``cli.densify`` for
+   S1_CLI_ITERATIONS[0] iterations with a checkpoint every 10, then resumed
+   to S1_CLI_ITERATIONS[1]; the metrics rows, the written cloud (read by
+   ``io.checkpoint.load_cloud``), the set-up times (sequence load, each
+   checkpoint write of the 201,216-slot state).
+
 Prints one ``{"kernels": [...]}`` JSON line (the routing once per slot
 mode, each with the launches of its paths; the forwards also with their
 time and bound at the training shapes, ``train_ms`` and
-``train_bound_ms``; K2 also at 8 and 24 px tiles at the training shapes,
+``train_bound_ms``; K1 and K2 also at the stage-1 shape, ``stage1_ms`` and
+``stage1_bound_ms``; K2 also at 8 and 24 px tiles at the training shapes,
 ``tiles``), then the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; nothing is
 caught and continued.  Imports nothing of JAX.
@@ -154,6 +196,14 @@ STAGING_ITERATIONS = 6   # train_options: sequence iterations per staging mode
 CLI_FRAMES = 3           # cli: frames 0..2 of the sequence, T = 2 trainable
 KNN_POINTS = 250_000     # knn_native: above the native route's 200,000
 KNN_K = 20
+S1_CAPACITY_FACTOR = 6.0   # config 2: 33,528 points -> 201,216 slots
+S1_POINTS = 33_528
+S1_CAPACITY = 201_216
+S1_ITERATIONS = 610        # depth cut: config 2 fits 30,000 iterations
+S1_OPTION_VIEWS = 4        # stage1_options: views per step
+S1_OPTION_ITERATIONS = (20, 40)  # stage1_options: checkpoint at the first, resume to the second
+S1_PATH_ITERATIONS = 4     # stage1_options: the K4 and K5 runs
+S1_CLI_ITERATIONS = (30, 40)     # cli_densify: first run, then resumed to
 BIG_P = (1 << 24) + (1 << 20)  # gid slots of K4's large-budget call
 BIG_BASE = 1 << 24             # where its segments start
 BIG_TILES = 4
@@ -495,9 +545,10 @@ def bwd_work(kin_start, last, geo, n_live):
 
 
 def kernel_entry(name, source, replaces, by_path, err, ms, plain_ms, bound, library_ms=None,
-                 train=None, tiles=None):
+                 train=None, tiles=None, stage1=None):
     """One entry of the kernels line; ``train``: a forward's numbers at the
-    training shapes; ``tiles``: a backward's at other tiles there."""
+    training shapes; ``tiles``: a backward's at other tiles there;
+    ``stage1``: the numbers at the stage-1 shape."""
     bound_ms, t_bytes, t_ops = bound[:3]
     entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -510,6 +561,9 @@ def kernel_entry(name, source, replaces, by_path, err, ms, plain_ms, bound, libr
                      train_max_abs_err=train["err"])
     if tiles is not None:
         entry["tiles"] = tiles
+    if stage1 is not None:
+        entry.update(stage1_ms=stage1["ms"], stage1_bound_ms=stage1["bound"][0],
+                     stage1_max_abs_err=stage1["err"])
     return entry
 
 
@@ -1099,6 +1153,489 @@ def knn_native_check(dev):
         fail(f"knn_native: squared distances {rel:.3e} relative from float64's, > 1e-6")
 
 
+class Stage1Log:
+    """A stage-1 logger: each iteration's metrics kept as device tensors and
+    read after the run (so the loop is not synchronised per iteration),
+    budget growths printed as they come."""
+
+    def __init__(self):
+        self.rows, self.growths = [], []
+
+    def log(self, metrics, step):
+        if "budget_growth" in metrics:
+            print(f"  iteration {step}: budget growth -> {metrics}", flush=True)
+            self.growths.append((step, dict(metrics)))
+            return
+        self.rows.append((step, metrics))
+
+    def flush(self):
+        pass
+
+    def floats(self):
+        return [(step, {k: float(v) for k, v in m.items()}) for step, m in self.rows]
+
+
+def s1_capacity(n_points: int) -> int:
+    return -(-int(n_points * S1_CAPACITY_FACTOR) // 256) * 256
+
+
+def stage1_scene(dev, truth):
+    """The config-2 scene (module docstring): (points, views with their
+    targets on the card, scene radius)."""
+    import torch
+
+    from splatpu_torch.tools.train_scene import (
+        render_stage1_targets,
+        rig_scene_radius,
+        stage1_points,
+    )
+
+    t0 = time.perf_counter()
+    views = render_stage1_targets(truth, *SERVE_SIZE, impl="cuda", device=dev)
+    torch.cuda.synchronize()
+    pc = stage1_points(truth)
+    radius = rig_scene_radius(*SERVE_SIZE)
+    print(f"  config 2: {len(views)} cameras at {SERVE_SIZE[0]}x{SERVE_SIZE[1]}, targets rendered"
+          f" in {time.perf_counter() - t0:.2f} s; {len(pc)} initial points of {truth.capacity},"
+          f" capacity {s1_capacity(len(pc))}; scene radius {radius:.4f}", flush=True)
+    if len(pc) != S1_POINTS or s1_capacity(len(pc)) != S1_CAPACITY:
+        fail(f"config 2: {len(pc)} points, capacity {s1_capacity(len(pc))}")
+    for v in views:
+        if not (bool(torch.isfinite(v.image).all()) and bool(torch.isfinite(v.segmentation).all())):
+            fail("config 2: non-finite targets")
+    return pc, views, radius
+
+
+def s1_budget(steps, cloud, pick, binning, name):
+    """``binning`` grown as ``fit``'s overflow checks grow it (the span
+    before the pairs) until one iteration's renders fit."""
+    from splatpu_torch.render.binning import grow_for_span_overflow
+
+    for _ in range(5):
+        out = steps.forward_backward(cloud, pick, binning, param_grads=False).image
+        if not bool(out.overflowed.any()):
+            return binning
+        span = bool(out.span_overflowed.any())
+        binning = (grow_for_span_overflow(binning, cloud.capacity) if span else
+                   dataclasses.replace(binning, max_pairs=min(binning.max_pairs * 2, 1 << 24)))
+        print(f"  {name}: the {'span' if span else 'pair'} budget overflowed; grown to"
+              f" max_pairs {binning.max_pairs}, max_span {binning.max_span}", flush=True)
+    fail(f"stage1_step, {name}: the render still overflows after 5 growths")
+
+
+class L1Signs:
+    """Stage 1's per-view image loss with the L1 term's signs recorded in
+    one run and replayed in the next.  Float rounding in the forward can
+    flip sign(x - target) where a residual is near 0, which changes that
+    pixel's L1 cotangent by 2 x 0.8 / (3 H W) however close the kernels
+    are.  Recording, it is ``image_losses`` exactly; replaying, its value
+    differs only on the flipped pixels, and both runs differentiate the
+    same function."""
+
+    def __init__(self):
+        self.signs, self.replay, self.calls, self.flips = [], False, 0, []
+
+    def __call__(self, rendered, target):
+        import torch
+
+        from splatpu_torch.core.ssim import ssim
+        from splatpu_torch.train.losses import L1_WEIGHT, SSIM_WEIGHT
+
+        r = rendered - target
+        sign = torch.sign(r.detach())
+        if self.replay:
+            ref = self.signs[self.calls % len(self.signs)]
+            self.flips.append(int((ref != sign).sum()))
+            sign = ref
+        else:
+            self.signs.append(sign)
+        self.calls += 1
+        l1 = (sign * r).mean(dim=(1, 2, 3))
+        return L1_WEIGHT * l1 + SSIM_WEIGHT * (1.0 - ssim(rendered, target, size_average=False))
+
+
+def stage1_step_check(dev, truth, pc, views, radius):
+    """stage1_step (module docstring)."""
+    import numpy as np
+    import torch
+
+    import splatpu_torch.train.stage1 as stage1
+    from splatpu_torch.core.types import cloud_from_arrays
+    from splatpu_torch.render.api import resolve_binning
+    from splatpu_torch.tools.measure import row_scaled_err
+    from splatpu_torch.train.optim import Stage1Adam
+
+    cap = s1_capacity(len(pc))
+    staged = stage1.stage_views(views, dev)
+    pick = torch.tensor([0], device=dev)
+    # The truth renders its own targets exactly (zero loss, zero gradients):
+    # its means are moved by a seeded N(0, 0.005^2) first.
+    jitter = torch.from_numpy(np.random.default_rng(1).normal(
+        0.0, 0.005, tuple(truth.means.shape)).astype(np.float32)).to(dev)
+    clouds = {"initial cloud": stage1.initialize_cloud(pc, cap, device=dev),
+              "truth moved, padded": cloud_from_arrays(
+                  **dict(truth.param_dict(), means=truth.means + jitter), capacity=cap,
+                  device=dev)}
+
+    def steps_of(impl, cloud):
+        return stage1.Stage1Steps(stage1.Stage1Config(renderer=impl), radius, staged,
+                                  *SERVE_SIZE, Stage1Adam(cloud.param_dict()))
+
+    def step(impl, cloud, binning):
+        t0 = time.perf_counter()
+        out = steps_of(impl, cloud).forward_backward(cloud, pick, binning)
+        torch.cuda.synchronize()
+        print(f"  {name}, {impl}: one iteration's renders and gradients in"
+              f" {1e3 * (time.perf_counter() - t0):.1f} ms (host clock); pairs"
+              f" {int(out.image.total_pairs.max())} of {binning.max_pairs}", flush=True)
+        return out
+
+    def grad_rows(got, ref):
+        rows = {"means2d_offset": row_scaled_err(got.offset_grad, ref.offset_grad)}
+        rows.update({k: row_scaled_err(g, ref.grads[k]) for k, g in got.grads.items()})
+        return rows
+
+    image_losses = stage1.image_losses
+    for name, cloud in clouds.items():
+        where = f"stage1_step, {name}"
+        binning = s1_budget(steps_of("cuda", cloud), cloud, pick, resolve_binning(cap), name)
+        got, again = step("cuda", cloud, binning), step("cuda", cloud, binning)
+        same = {"total": torch.equal(got.total, again.total),
+                "images": torch.equal(got.image.image, again.image.image)
+                and torch.equal(got.segmentation.image, again.segmentation.image),
+                "means2d_offset": torch.equal(got.offset_grad, again.offset_grad)}
+        same.update({k: torch.equal(g, again.grads[k]) for k, g in got.grads.items()})
+        if not all(same.values()):
+            fail(f"{where}: two CUDA runs differ: {same}")
+        print(f"  {where}: two CUDA runs bitwise identical in {list(same)}", flush=True)
+        del again
+        signs = L1Signs()
+        stage1.image_losses = signs
+        try:
+            ref = step("plain", cloud, binning)
+            signs.replay = True
+            matched = step("cuda", cloud, binning)
+        finally:
+            stage1.image_losses = image_losses
+        if bool(got.image.overflowed.any()):
+            fail(f"{where}: the render overflowed its budget")
+        rel = abs(float(got.total) - float(ref.total)) / abs(float(ref.total))
+        errs = {tag: float((a.image - b.image).detach().abs().max())
+                for tag, a, b in (("image", got.image, ref.image),
+                                  ("segmentation", got.segmentation, ref.segmentation))}
+        last = {tag: int((a.last_contributor != b.last_contributor).sum())
+                for tag, a, b in (("image", got.image, ref.image),
+                                  ("segmentation", got.segmentation, ref.segmentation))}
+        print(f"  {where}: loss {float(got.total):.6f} (plain {float(ref.total):.6f}, relative"
+              f" {rel:.3e}); max|d| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; last mismatches {last}", flush=True)
+        print(f"  {where}: L1 signs of the CUDA run's residuals other than the plain run's"
+              f" (image, segmentation): {signs.flips}; its gradients with those left in: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in grad_rows(got, ref).items())
+              + " (scaled per row)", flush=True)
+        check_rows(f"{where}, gradients (both runs on the plain run's L1 signs)",
+                   grad_rows(matched, ref))
+        if not rel <= 1e-5:
+            fail(f"{where}: loss relative error {rel:.3e} > 1e-5")
+        if not max(errs.values()) <= TOL["image"]:
+            fail(f"{where}: image error {errs} > {TOL['image']}")
+        if any(last.values()):
+            fail(f"{where}: last contributor differs on {last} pixels")
+        if not float(got.offset_grad.abs().max()) > 0:
+            fail(f"{where}: the means2d_offset gradient is zero")
+        del got, ref, matched
+
+
+def stage1_path(dev, pc, views, radius):
+    """stage1 (module docstring): returns (counts, fitted cloud, final binning)."""
+    import numpy as np
+    import torch
+
+    import splatpu_torch.train.stage1 as stage1
+
+    cfg = stage1.Stage1Config(iterations=S1_ITERATIONS, capacity_factor=S1_CAPACITY_FACTOR,
+                              renderer="cuda")
+    log = Stage1Log()
+    marks = []
+    seen = {}
+    real_dual = stage1.render_dual
+
+    def spy(*a, config=None, **kw):
+        seen["binning"] = config
+        return real_dual(*a, config=config, **kw)
+
+    def on_iteration(i, cloud, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((i, ev, time.perf_counter()))
+
+    stage1.render_dual = spy
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        cloud, _ = stage1.fit(pc, views, radius, cfg, logger=log, on_iteration=on_iteration,
+                              on_iteration_every=1, device=DEVICE)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        stage1.render_dual = real_dual
+    rows = log.floats()
+    mutation = cfg.densify.is_mutation_iter
+    ev_ms = {b[0]: a[1].elapsed_time(b[1]) for a, b in zip(marks, marks[1:])}
+    wall_ms = {b[0]: 1e3 * (b[2] - a[2]) for a, b in zip(marks, marks[1:])}
+    plain_its = [i for i in ev_ms if i >= 20 and not mutation(i)]
+    print(f"  fit: {S1_ITERATIONS} iterations in {fit_s:.2f} s wall (initialisation and"
+          f" staging included); launches {counts}; final budget: max_pairs"
+          f" {seen['binning'].max_pairs}, max_span {seen['binning'].max_span}", flush=True)
+    print(f"  ms per non-mutation iteration after the first 20 ({len(plain_its)}): CUDA events"
+          f" median {np.median([ev_ms[i] for i in plain_its]):.3f} (min"
+          f" {min(ev_ms[i] for i in plain_its):.3f}, max {max(ev_ms[i] for i in plain_its):.3f}),"
+          f" wall median {np.median([wall_ms[i] for i in plain_its]):.3f}", flush=True)
+    by_step = dict(rows)
+    for i in sorted(i for i in ev_ms if mutation(i)):
+        m = by_step[i]
+        print(f"  mutation {i}: {ev_ms[i]:.3f} ms CUDA events, {wall_ms[i]:.3f} ms wall; cloned"
+              f" {int(m['cloned'])}, split {int(m['split'])}, pruned {int(m['pruned'])}, dropped"
+              f" {int(m['dropped_for_capacity'])}; n_alive {int(m['n_alive'])}", flush=True)
+    totals = [m["total_loss"] for _, m in rows]
+    first, last = float(np.mean(totals[:20])), float(np.mean(totals[-20:]))
+    print(f"  total_loss first {totals[0]:.6f}, last {totals[-1]:.6f}; mean of the first 20"
+          f" {first:.6f}, of the last 20 {last:.6f}; growths {len(log.growths)}; n_alive at the"
+          f" end {int(rows[-1][1]['n_alive'])}", flush=True)
+    if [s for s, _ in rows] != list(range(S1_ITERATIONS)):
+        fail("stage1: logged iterations are not 0..S1_ITERATIONS - 1")
+    if not all(np.isfinite(t) for t in totals):
+        fail("stage1: a non-finite loss")
+    if not last < first:
+        fail(f"stage1: the loss did not fall ({first} -> {last})")
+    if rows[-1][1]["binning_overflow"]:
+        fail("stage1: binning overflow left at the last iteration")
+    if sum(1 for i in ev_ms if mutation(i)) != 2:
+        fail("stage1: expected the mutations at 500 and 600")
+    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
+    for k in expected:
+        if counts[k] != 2 * S1_ITERATIONS:
+            fail(f"stage1: {k} launched {counts[k]} times, expected 2 per iteration")
+    check_only(counts, expected, "stage1")
+    return counts, cloud, seen["binning"]
+
+
+def stage1_options_path(dev, pc, views, radius):
+    """stage1_options (module docstring): returns {path: counts}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import splatpu_torch.train.stage1 as stage1
+    from splatpu_torch.core.types import Camera, activate_cloud
+    from splatpu_torch.growth.densify import DensifyConfig
+    from splatpu_torch.io.checkpoint import load_checkpoint
+    from splatpu_torch.render.api import measure_binning_demand, resolve_binning
+
+    cap = s1_capacity(len(pc))
+    dcfg = DensifyConfig(mutate_start=10, mutate_every=10, opacity_reset_every=20,
+                         prune_big_start=20, window_end=30)
+    cams = Camera(w2c=torch.from_numpy(np.stack([v.w2c for v in views])).to(dev),
+                  K=torch.from_numpy(np.stack([v.K for v in views])).to(dev),
+                  width=SERVE_SIZE[0], height=SERVE_SIZE[1])
+    demand, _ = measure_binning_demand(
+        activate_cloud(stage1.initialize_cloud(pc, cap, device=dev)), cams)
+    quarter = max(256, demand // 4 // 256 * 256)
+    binning = dataclasses.replace(resolve_binning(cap), max_pairs=quarter)
+    print(f"  pair demand of the initial cloud (max over the views) {demand}; budget {quarter}",
+          flush=True)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="splatpu_s1_") as tmp:
+        ckpt = str(Path(tmp) / "stage1.msgpack")
+        base = stage1.Stage1Config(
+            iterations=S1_OPTION_ITERATIONS[0], capacity_factor=S1_CAPACITY_FACTOR,
+            renderer="cuda", densify=dcfg, views_per_step=S1_OPTION_VIEWS, binning=binning,
+            overflow_check_every=5, checkpoint_every=S1_OPTION_ITERATIONS[0],
+            checkpoint_path=ckpt)
+        torch.cuda.synchronize()
+        zero_counts()
+        log = Stage1Log()
+        stage1.fit(pc, views, radius, base, logger=log, device=DEVICE)
+        saved = load_checkpoint(ckpt)
+        print("  (the schedule resets every opacity to 0.01 at 20; at 30 the final prune drops"
+              " those still under 0.25)", flush=True)
+        print(f"  first run: {S1_OPTION_ITERATIONS[0]} iterations; checkpoint i"
+              f" {int(saved['i'])}, growths {int(saved['growths'])}, max_pairs"
+              f" {int(saved['max_pairs'])}, max_span {int(saved['max_span'])}", flush=True)
+        for step, m in log.floats():
+            if "cloned" in m:
+                print(f"  mutation {step}: cloned {int(m['cloned'])}, split {int(m['split'])},"
+                      f" pruned {int(m['pruned'])}; n_alive {int(m['n_alive'])}", flush=True)
+        if int(saved["i"]) != S1_OPTION_ITERATIONS[0] - 1 or int(saved["growths"]) < 1 or int(
+                saved["max_pairs"]) <= quarter:
+            fail("stage1_options: the checkpoint does not hold the iteration and a grown budget")
+        resumed = []
+        for run in range(2):
+            log = Stage1Log()
+            seen = []
+            real_dual = stage1.render_dual
+
+            def spy(*a, config=None, **kw):
+                seen.append((config.max_pairs, config.max_span))
+                return real_dual(*a, config=config, **kw)
+
+            stage1.render_dual = spy
+            try:
+                cloud, _ = stage1.fit(pc, views, radius, dataclasses.replace(
+                    base, iterations=S1_OPTION_ITERATIONS[1], checkpoint_every=0), logger=log,
+                    resume_from=ckpt, device=DEVICE)
+            finally:
+                stage1.render_dual = real_dual
+            rows = log.floats()
+            growth_ids = [int(m["budget_growth"]) for _, m in log.growths]
+            print(f"  resume {run + 1}: iterations {rows[0][0]}..{rows[-1][0]}, first budget"
+                  f" {seen[0]}, growths {growth_ids}, total_loss {rows[0][1]['total_loss']:.6f}"
+                  f" -> {rows[-1][1]['total_loss']:.6f}, n_alive {int(rows[-1][1]['n_alive'])}",
+                  flush=True)
+            if rows[0][0] != S1_OPTION_ITERATIONS[0] or seen[0] != (
+                    int(saved["max_pairs"]), int(saved["max_span"])):
+                fail(f"stage1_options: resume {run + 1} did not carry i and the budget")
+            if any(g <= int(saved["growths"]) for g in growth_ids):
+                fail(f"stage1_options: resume {run + 1} restarted the growth count")
+            resumed.append(cloud)
+        torch.cuda.synchronize()
+        out["stage1_options"] = launch_counts()
+    a, b = resumed
+    same = {k: torch.equal(getattr(a, k), getattr(b, k))
+            for k in ("alive", "means", "colors", "segmentation_masks", "rotation_quaternions",
+                      "opacity_logits", "log_scales")}
+    print(f"  the two resumed clouds at {S1_OPTION_ITERATIONS[1]}: bitwise equal {same}",
+          flush=True)
+    if not all(same.values()):
+        fail("stage1_options: two resumes from one checkpoint differ")
+    n_its = S1_OPTION_ITERATIONS[0] + 2 * (S1_OPTION_ITERATIONS[1] - S1_OPTION_ITERATIONS[0])
+    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
+    for k in expected:
+        if out["stage1_options"][k] != 2 * n_its:
+            fail(f"stage1_options: {k} launched {out['stage1_options'][k]} times in {n_its}"
+                 " iterations")
+    check_only(out["stage1_options"], expected, "stage1_options")
+    for name, changes, expected in (
+        ("stage1_manual", dict(binning_overrides={"kernel": "manual"}),
+         {"composite_manual_fwd", "composite_manual_bwd", "route_pairs"}),
+        ("stage1_padded", dict(renderer="cuda_padded", binning_overrides={"tile": 16}),
+         {"padded_fwd", "padded_bwd", "route_pairs"}),
+    ):
+        cfg = stage1.Stage1Config(**{
+            "iterations": S1_PATH_ITERATIONS, "capacity_factor": S1_CAPACITY_FACTOR,
+            "renderer": "cuda", "densify": dcfg, "views_per_step": S1_OPTION_VIEWS, **changes})
+        log = Stage1Log()
+        torch.cuda.synchronize()
+        zero_counts()
+        stage1.fit(pc, views, radius, cfg, logger=log, device=DEVICE)
+        torch.cuda.synchronize()
+        counts = out[name] = launch_counts()
+        rows = log.floats()
+        print(f"  {name} ({changes}): losses {[round(m['total_loss'], 6) for _, m in rows]};"
+              f" launches {counts}", flush=True)
+        if not all(np.isfinite(m["total_loss"]) for _, m in rows):
+            fail(f"{name}: a non-finite loss")
+        for k in expected:
+            if counts[k] != 2 * S1_PATH_ITERATIONS:
+                fail(f"{name}: {k} launched {counts[k]} times, expected 2 per iteration")
+        check_only(counts, expected, name)
+    return out
+
+
+def cli_densify_path(dev, pc, views):
+    """cli_densify (module docstring): returns the launch counts."""
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import splatpu_torch.cli.densify as cli_densify
+    import splatpu_torch.train.stage1 as stage1
+    from splatpu_torch.data.dataset import save_synthetic_sequence
+    from splatpu_torch.io.checkpoint import load_checkpoint, load_cloud
+    from splatpu_torch.io.images import have_pil
+
+    timed = {"load": [], "checkpoint": []}
+
+    def timer(fn, key):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            timed[key].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return wrapped
+
+    with tempfile.TemporaryDirectory(prefix="splatpu_densify_") as tmp:
+        seq, ckpt = Path(tmp) / "config2", Path(tmp) / "stage1.msgpack"
+        t0 = time.perf_counter()
+        images = torch.stack([v.image for v in views])
+        images = torch.round(torch.clamp(images, 0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+        segs = (torch.stack([v.segmentation[0] for v in views]) > 0.5).cpu().numpy()
+        suffix = ".jpg" if have_pil() else ".png"
+        save_synthetic_sequence(seq, images[None], segs[None].astype(np.float32),
+                                np.stack([v.K for v in views])[None],
+                                np.stack([v.w2c for v in views])[None], pc, image_suffix=suffix)
+        print(f"  sequence: 1 frame x {len(views)} cameras ({suffix[1:]}), {len(pc)} points;"
+              f" written in {time.perf_counter() - t0:.2f} s", flush=True)
+        patched = {(cli_densify, "load_timestep_views"): "load",
+                   (cli_densify, "load_initial_point_cloud"): "load",
+                   (stage1, "save_checkpoint"): "checkpoint"}
+        originals = {k: getattr(*k) for k in patched}
+        for (mod, attr), key in patched.items():
+            setattr(mod, attr, timer(getattr(mod, attr), key))
+        try:
+            torch.cuda.synchronize()
+            zero_counts()
+            common = [str(seq), "--capacity-factor", str(S1_CAPACITY_FACTOR), "--device", DEVICE,
+                      "--checkpoint-path", str(ckpt)]
+            t0 = time.perf_counter()
+            cli_densify.main([*common, "--iterations", str(S1_CLI_ITERATIONS[0]),
+                              "--checkpoint-every", "10"])
+            first_s = time.perf_counter() - t0
+            saved_i = int(load_checkpoint(ckpt)["i"])
+            t0 = time.perf_counter()
+            cli_densify.main([*common, "--iterations", str(S1_CLI_ITERATIONS[1]),
+                              "--resume-from", str(ckpt)])
+            torch.cuda.synchronize()
+            second_s = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            for (mod, attr), fn in originals.items():
+                setattr(mod, attr, fn)
+        rows = [json.loads(x) for x in (seq / "densify_metrics.jsonl").read_text().splitlines()]
+        written = seq / "densified_initial_gaussian_cloud_parameters.npz"
+        t0 = time.perf_counter()
+        cloud = load_cloud(written, device=dev)
+        load_cloud_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"  cli.densify: {first_s:.2f} s, resumed {second_s:.2f} s; launches {counts}",
+          flush=True)
+    print(f"  sequence load ms (points, then the 27 views, per run):"
+          f" {[round(x, 3) for x in timed['load']]}; checkpoint write ms (201,216-slot state):"
+          f" {[round(x, 3) for x in timed['checkpoint']]}; written cloud read in"
+          f" {load_cloud_ms:.3f} ms", flush=True)
+    print(f"  metrics rows {len(rows)}, total_loss {rows[0]['total_loss']:.6f} ->"
+          f" {rows[-1]['total_loss']:.6f}; written cloud {cloud.capacity} slots,"
+          f" {int(cloud.n_alive())} alive", flush=True)
+    if saved_i != S1_CLI_ITERATIONS[0] - 1:
+        fail(f"cli_densify: the checkpoint holds i {saved_i}")
+    if [r["step"] for r in rows] != list(range(S1_CLI_ITERATIONS[1])):
+        fail(f"cli_densify: logged steps {[r['step'] for r in rows]}")
+    if not all(np.isfinite(r["total_loss"]) for r in rows):
+        fail("cli_densify: a non-finite loss")
+    if cloud.capacity % 256 or int(cloud.n_alive()) != int(rows[-1]["n_alive"]):
+        fail("cli_densify: the written cloud does not hold the fit's alive Gaussians")
+    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
+    for k in expected:
+        if counts[k] != 2 * S1_CLI_ITERATIONS[1]:
+            fail(f"cli_densify: {k} launched {counts[k]} times")
+    check_only(counts, expected, "cli_densify")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1306,12 +1843,13 @@ def main() -> int:
                             composite.composite_fwd_cuda, composite.composite_fwd_plain, kin, geo,
                             composite.composite_fwd_cuda(*kin, **geo), table_bytes_in(kin))
 
-    def measure_table_bwd(label, case, fwd_label, fwd, fwd_plain, bwd, bwd_plain):
-        """At the training shapes: a table forward (errors, time, bound), its
+    def measure_table_bwd(label, case, fwd_label, fwd, fwd_plain, bwd, bwd_plain,
+                          shapes="the training shapes"):
+        """At ``shapes``: a table forward (errors, time, bound), its
         backward and the routing (errors, times, the index_add_ yardstick
         and both bounds)."""
         kin, geo, cot, (tfin, last) = case["kin"], case["geo"], case["cot"], case["fwd"]
-        kf, n_live = measure_fwd(f"{fwd_label} at the training shapes", fwd, fwd_plain, kin, geo,
+        kf, n_live = measure_fwd(f"{fwd_label} at {shapes}", fwd, fwd_plain, kin, geo,
                                  case["out"], table_bytes_in(kin), time_plain=False)
         offsets, counts, lane = case["offsets"], case["counts"], case["lane"]
         run = lambda: bwd(*kin, tfin, last, *cot, **geo)  # noqa: E731
@@ -1331,7 +1869,7 @@ def main() -> int:
         lib_err = float((library().reshape(v, n, rec) - routed).abs().max())
         rows_ref = run_plain()
         routed_ref = route.route_pairs_plain(rows, pos, offsets, counts)
-        check_rows(f"{label} at the training shapes", {
+        check_rows(f"{label} at {shapes}", {
             "rows": row_scaled_err(rows, rows_ref), "routing": row_scaled_err(routed, routed_ref)})
         errs = (float((rows - rows_ref).abs().max()), float((routed - routed_ref).abs().max()))
         del rows_ref
@@ -1505,21 +2043,46 @@ def main() -> int:
     with phase("knn_native", 180):
         knn_native_check(dev)
 
+    with phase("stage1_step", 300):
+        s1_pc, s1_views, s1_radius = stage1_scene(dev, cloud)
+        stage1_step_check(dev, cloud, s1_pc, s1_views, s1_radius)
+
+    with phase("stage1", 420):
+        print(f"  depth cut: {S1_ITERATIONS} iterations (config 2 fits 30,000); width untouched",
+              flush=True)
+        counts, fitted, s1_binning = stage1_path(dev, s1_pc, s1_views, s1_radius)
+        trained["stage1"] = (counts, None)
+        case = table_case(activate_cloud(fitted), rig_cams(dev, *SERVE_SIZE, 1), s1_binning,
+                          composite.composite_fwd_cuda)
+        k1_s1, k2_s1, _ = measure_table_bwd(
+            "K2", case, "K1", composite.composite_fwd_cuda, composite.composite_fwd_plain,
+            composite.composite_bwd_cuda, composite.composite_bwd_plain,
+            shapes="the stage-1 shape (one view, the fitted cloud)")
+        del case, fitted
+
+    with phase("stage1_options", 420):
+        for name, counts in stage1_options_path(dev, s1_pc, s1_views, s1_radius).items():
+            trained[name] = (counts, None)
+
+    with phase("cli_densify", 300):
+        trained["cli_densify"] = (cli_densify_path(dev, s1_pc, s1_views), None)
+        del s1_views
+
     for k, v in ptxas_summary(_build.build_log).items():
         print(f"  ptxas {k}: {v}", flush=True)
     launched = {path: counts for path, (counts, _) in {**served, **trained}.items()}
     by_path = lambda name: {p: c[name] for p, c in launched.items() if c[name]}  # noqa: E731
     # The routing kernel has one counter; its slot mode follows the path.
     routes = by_path("route_pairs")
-    routes_padded = {p: k for p, k in routes.items() if p == "train_padded"}
+    routes_padded = {p: k for p, k in routes.items() if p in ("train_padded", "stage1_padded")}
     routes_exact = {p: k for p, k in routes.items() if p not in routes_padded}
     kernels = [
         kernel_entry("composite_fwd", "splatpu_torch/csrc/composite_fwd.cu",
                      "splatpu/render/exact.py:856 (_fwd_kernel_grid)", by_path("composite_fwd"),
-                     **k1, train=k1_train),
+                     **k1, train=k1_train, stage1=k1_s1),
         kernel_entry("composite_bwd", "splatpu_torch/csrc/composite_bwd.cu",
                      "splatpu/render/exact.py:994 (_bwd_kernel_grid)", by_path("composite_bwd"),
-                     **k2, tiles=k2_tiles),
+                     **k2, tiles=k2_tiles, stage1=k2_s1),
         kernel_entry("route_pairs", "splatpu_torch/csrc/route_pairs.cu",
                      "splatpu/render/exact.py:1320 (_cumsum_pairs_pallas)", routes_exact, **k3),
         kernel_entry("route_pairs_padded", "splatpu_torch/csrc/route_pairs.cu",

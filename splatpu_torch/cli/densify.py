@@ -1,10 +1,41 @@
-"""Stage-1 command line (port of ``splatpu/cli/densify.py``): for now the
-binning-budget flags that ``cli/train.py`` shares with it.  Stage 1 itself
-and its ``main`` are not ported yet (ROADMAP A.4)."""
+"""Stage-1 command line: fit and densify the static cloud of timestep 0
+(port of ``splatpu/cli/densify.py``).
+
+    python -m splatpu_torch.cli.densify <sequence_path> [--iterations N]
+        [--capacity-factor F] [--renderer ...] [--output PATH] [--wandb]
+        [--seed N] [--views-per-step N] [--grad-threshold F]
+        [--no-grow-budget] [--checkpoint-every N] [--checkpoint-path P]
+        [--resume-from P] [--tile N] [--max-pairs N] ... [--device cuda|cpu]
+
+The JAX package's positionals, flags and defaults, plus ``--device``
+(default ``cuda``; ``--device cpu --renderer plain`` runs on the CPU).
+Writes ``<sequence>/densify_metrics.jsonl`` and the compacted cloud
+(``--output``, default
+``<sequence>/densified_initial_gaussian_cloud_parameters.npz``), which
+``cli.train`` of either package reads.  ``--mesh-tiles`` other than 0 is
+refused: the tile-sharded render is not ported.  The JAX package's
+compilation cache (``obs/cache.py``) has no counterpart here.
+
+``add_binning_flags`` / ``binning_from_args`` are the binning-budget flags
+that ``cli/train.py`` shares.
+"""
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+from pathlib import Path
+
+from splatpu_torch.data.dataset import (
+    get_scene_radius,
+    load_initial_point_cloud,
+    load_metadata,
+    load_timestep_views,
+)
+from splatpu_torch.growth.densify import DensifyConfig
+from splatpu_torch.io.checkpoint import save_cloud
+from splatpu_torch.obs.metrics import MetricsLogger
+from splatpu_torch.train.stage1 import Stage1Config, fit
 
 BINNING_FLAGS = ("tile", "max_pairs", "max_span", "span_small", "chunk_pairs", "big_capacity")
 
@@ -31,3 +62,70 @@ def binning_from_args(args) -> dict | None:
     budget (a single flag such as --tile keeps the sizing of the others)."""
     overrides = {k: getattr(args, k) for k in BINNING_FLAGS if getattr(args, k) is not None}
     return overrides or None
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="splatpu-torch-densify")
+    p.add_argument("sequence_path", type=Path)
+    p.add_argument("--iterations", type=int, default=30_000)
+    p.add_argument("--capacity-factor", type=float, default=4.0)
+    p.add_argument("--renderer", default="auto")
+    p.add_argument("--output", type=Path, default=None,
+                   help="defaults to <sequence>/densified_initial_gaussian_cloud_parameters.npz")
+    p.add_argument("--wandb", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--mesh-tiles", type=int, default=0,
+                   help="image strips per render over a device mesh (not ported: must be 0)")
+    p.add_argument("--views-per-step", type=int, default=1,
+                   help="views rendered per iteration in one batched step (densification"
+                        " statistics advance as that many reference iterations)")
+    p.add_argument("--grad-threshold", type=float, default=None,
+                   help="densification screen-gradient threshold (default 2e-4)")
+    p.add_argument("--no-grow-budget", action="store_true",
+                   help="disable automatic pair-budget growth on binning overflow")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--checkpoint-path", type=Path, default=None)
+    p.add_argument("--resume-from", type=Path, default=None)
+    add_binning_flags(p)
+    p.add_argument("--device", default="cuda", help="torch device (cuda, or cpu for tests)")
+    return p
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    if args.mesh_tiles != 0:
+        raise NotImplementedError(
+            "--mesh-tiles: the tile-sharded stage-1 render is not ported (ROADMAP A.5)")
+    metadata = load_metadata(args.sequence_path)
+    point_cloud = load_initial_point_cloud(args.sequence_path)
+    scene_radius = get_scene_radius(metadata)
+    views = load_timestep_views(metadata, 0, args.sequence_path)
+    logger = MetricsLogger(jsonl_path=args.sequence_path / "densify_metrics.jsonl",
+                           use_wandb=args.wandb, wandb_project="densify-gaussian-cloud")
+    densify_cfg = DensifyConfig()
+    if args.grad_threshold is not None:
+        densify_cfg = dataclasses.replace(densify_cfg, grad_threshold=args.grad_threshold)
+    config = Stage1Config(
+        iterations=args.iterations,
+        capacity_factor=args.capacity_factor,
+        densify=densify_cfg,
+        renderer=args.renderer,
+        binning_overrides=binning_from_args(args),
+        mesh_tiles=args.mesh_tiles,
+        views_per_step=args.views_per_step,
+        grow_budget_on_overflow=not args.no_grow_budget,
+        seed=args.seed,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_path=str(args.checkpoint_path) if args.checkpoint_path else None,
+    )
+    cloud, _ = fit(point_cloud, views, scene_radius, config, logger=logger, progress=True,
+                   resume_from=str(args.resume_from) if args.resume_from else None,
+                   device=args.device)
+    out = args.output or (args.sequence_path / "densified_initial_gaussian_cloud_parameters.npz")
+    save_cloud(out, cloud)
+    logger.close()
+    print(f"saved densified cloud ({int(cloud.n_alive())} Gaussians) -> {out}")
+
+
+if __name__ == "__main__":
+    main()

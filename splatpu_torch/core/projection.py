@@ -60,8 +60,9 @@ class Splats2D:
 
 
 def offset_pixel_scale(camera: Camera) -> torch.Tensor:
-    """Pixel scale of the screen-gradient collector: half the image's width
-    and height (the JAX package's strip-render FOV override is not ported)."""
+    """Pixel scale of ``RenderArgs.means2d_offset``: half the image's width
+    and height, the CUDA rasterizer's d(pixel)/d(NDC) (the JAX package's
+    strip-render FOV override waits for ROADMAP A.5)."""
     return torch.tensor(
         [camera.width * 0.5, camera.height * 0.5], dtype=torch.float32, device=camera.K.device
     )
@@ -107,6 +108,11 @@ def preprocess(args: RenderArgs, camera: Camera) -> Splats2D:
     ndc = p_hom[:, :2] * p_w[:, None]
     wh = torch.tensor([camera.width, camera.height], dtype=torch.float32, device=means.device)
     mean2d = ((ndc + 1.0) * wh - 1.0) * 0.5
+    if args.means2d_offset is not None:
+        # The screen-gradient collector: its pixel scale is half the image.
+        if args.means2d_offset.dim() != 2:
+            raise ValueError("preprocess takes one view's (N, 2) offset; use args.for_view(i)")
+        mean2d = mean2d + args.means2d_offset * offset_pixel_scale(camera)
 
     cov3d = compute_cov3d_columns(args.scales, args.rotations)
     limx = 1.3 * camera.tan_fovx

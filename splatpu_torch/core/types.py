@@ -42,6 +42,9 @@ class GaussianCloud:
     def capacity(self) -> int:
         return self.means.shape[0]
 
+    def n_alive(self) -> torch.Tensor:
+        return self.alive.sum(dtype=torch.int32)
+
     def param_dict(self) -> dict[str, torch.Tensor]:
         return {k: getattr(self, k) for k in CLOUD_PARAMS}
 
@@ -52,6 +55,40 @@ class GaussianCloud:
         return GaussianCloud(
             **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)}
         )
+
+
+def cloud_from_arrays(
+    means,
+    colors,
+    segmentation_masks,
+    rotation_quaternions,
+    opacity_logits,
+    log_scales,
+    capacity: Optional[int] = None,
+    device="cuda",
+) -> GaussianCloud:
+    """A cloud from dense (N, .) arrays, padded up to ``capacity`` with dead
+    rows of benign values (identity quaternions, opacity logit -20, log
+    scale -10), as ``splatpu/core/types.py:67-105`` pads."""
+    arrays = dict(means=means, colors=colors, segmentation_masks=segmentation_masks,
+                  rotation_quaternions=rotation_quaternions, opacity_logits=opacity_logits,
+                  log_scales=log_scales)
+    n = arrays["means"].shape[0]
+    cap = n if capacity is None else capacity
+    if cap < n:
+        raise ValueError(f"capacity {cap} < point count {n}")
+    fill = {"opacity_logits": -20.0, "log_scales": -10.0}
+
+    def pad(k):
+        a = torch.as_tensor(arrays[k], dtype=torch.float32, device=device)
+        block = torch.full((cap - n,) + tuple(a.shape[1:]), fill.get(k, 0.0),
+                           dtype=torch.float32, device=device)
+        if k == "rotation_quaternions":
+            block[:, 0] = 1.0
+        return torch.cat([a, block])
+
+    return GaussianCloud(alive=torch.arange(cap, device=device) < n,
+                         **{k: pad(k) for k in CLOUD_PARAMS})
 
 
 @dataclasses.dataclass
@@ -133,8 +170,13 @@ def stack_cameras(cameras: list[Camera]) -> Camera:
 class RenderArgs:
     """Activated per-Gaussian quantities the renderer consumes.
 
-    The JAX package's ``means2d_offset`` screen-gradient collector is left
-    out: only stage 1's densification reads it, and stage 1 is not ported.
+    ``means2d_offset`` is the screen-gradient collector that stage 1's
+    densification reads: an additive zero in NDC units on each Gaussian's
+    pixel position, whose gradient is the per-Gaussian screen-space
+    gradient (``splatpu/core/types.py:186-207``).  ``None`` (the default)
+    adds nothing.  It is (N, 2) for every view of a camera, or (V, N, 2)
+    for a batched camera of V views, one slice per view, so that each view
+    collects its own screen gradients.
     """
 
     means3d: torch.Tensor    # (N, 3)
@@ -142,10 +184,18 @@ class RenderArgs:
     rotations: torch.Tensor  # (N, 4) unit quaternions
     opacities: torch.Tensor  # (N, 1) in [0, 1]
     scales: torch.Tensor     # (N, 3) positive
+    means2d_offset: Optional[torch.Tensor] = None  # (N, 2) or (V, N, 2)
 
     @property
     def n(self) -> int:
         return self.means3d.shape[0]
+
+    def for_view(self, i: int) -> "RenderArgs":
+        """The args of view ``i``: the offset's i-th slice where it is per view."""
+        off = self.means2d_offset
+        if off is None or off.dim() == 2:
+            return self
+        return dataclasses.replace(self, means2d_offset=off[i])
 
 
 def activate_cloud(

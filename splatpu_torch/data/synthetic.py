@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from splatpu_torch.core.types import Camera, GaussianCloud
+from splatpu_torch.core.types import Camera, GaussianCloud, cloud_from_arrays
 
 
 def random_cloud_arrays(seed: int, n: int, center=(0.0, 0.0, 0.0), extent: float = 1.0,
@@ -37,31 +37,11 @@ def random_cloud_arrays(seed: int, n: int, center=(0.0, 0.0, 0.0), extent: float
                 log_scales=f32(log_scales))
 
 
-def cloud_from_arrays(arrays: dict, capacity: int | None = None, device="cuda") -> GaussianCloud:
-    """A cloud from dense (N, .) arrays, padded up to ``capacity`` with dead
-    rows of benign values (identity quaternions, opacity logit -20, log
-    scale -10), as the JAX package's ``cloud_from_arrays`` pads."""
-    n = arrays["means"].shape[0]
-    cap = n if capacity is None else capacity
-    if cap < n:
-        raise ValueError(f"capacity {cap} < point count {n}")
-    fill = {"opacity_logits": -20.0, "log_scales": -10.0}
-
-    def pad(k):
-        a = np.asarray(arrays[k], np.float32)
-        block = np.full((cap - n,) + a.shape[1:], fill.get(k, 0.0), np.float32)
-        if k == "rotation_quaternions":
-            block[:, 0] = 1.0
-        return torch.from_numpy(np.concatenate([a, block])).to(device)
-
-    return GaussianCloud(alive=(torch.arange(cap) < n).to(device),
-                         **{k: pad(k) for k in arrays})
-
-
 def make_random_cloud(seed: int, n: int, capacity: int | None = None, device="cuda",
                       **kw) -> GaussianCloud:
     """``random_cloud_arrays(seed, n, **kw)`` as a cloud of ``capacity`` rows."""
-    return cloud_from_arrays(random_cloud_arrays(seed, n, **kw), capacity, device=device)
+    return cloud_from_arrays(**random_cloud_arrays(seed, n, **kw), capacity=capacity,
+                             device=device)
 
 
 def lookat_matrices(eye=(0.0, 0.0, -4.0), target=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0),

@@ -15,6 +15,10 @@
 - ``save_checkpoint`` / ``load_checkpoint``: a whole tree, written
   atomically through ``<path>.tmp``; always msgpack, whatever the suffix
   (the JAX package's orbax backend is not ported).
+- ``stage1_checkpoint_tree`` / ``stage1_state_from_tree``: the stage-1
+  checkpoint tree of ``splatpu/train/stage1.py`` (cloud, Adam state,
+  densification statistics, key, iteration, budget), in both directions,
+  so that a stage-1 checkpoint of either package resumes in the other.
 - ``load_stage2_net``: a stage-2 checkpoint's ``net_params`` as a
   ``DeformationNet`` state dict; ``load_stage2_run``: the network of a
   stage-2 run directory with the head settings its result file records;
@@ -360,6 +364,55 @@ def load_checkpoint(path, template=None):
     where keys or shapes differ, as flax does."""
     state = msgpack_restore(Path(path).read_bytes())
     return state if template is None else _restore_into(template, state)
+
+
+STAGE1_STATS = ("grad_accum", "vis_count", "max_radii")
+
+
+def stage1_checkpoint_tree(cloud: GaussianCloud, adam, stats, key, i: int, max_pairs: int,
+                           max_span: int, growths: int) -> dict:
+    """A stage-1 checkpoint in the JAX package's layout: ``cloud`` (its
+    fields in ``CLOUD_KEYS`` order), ``opt_state`` (optax's
+    ``ScaleByAdamState``: ``count`` int32, ``mu`` and ``nu`` keyed in sorted
+    order, as JAX's tree maps rebuild dicts), ``stats`` (``STAGE1_STATS``),
+    ``key`` (uint32[2]), then ``i``, ``max_pairs``, ``max_span`` and
+    ``growths`` (int32, 0-d).  ``adam``: a ``Stage1Adam``; ``stats``: a
+    ``DensifyStats``."""
+    i32 = lambda x: np.asarray(x, np.int32)  # noqa: E731
+    return {
+        "cloud": {k: getattr(cloud, k) for k in CLOUD_KEYS},
+        "opt_state": {
+            "count": i32(adam.count),
+            "mu": {k: adam.mu[k] for k in sorted(adam.mu)},
+            "nu": {k: adam.nu[k] for k in sorted(adam.nu)},
+        },
+        "stats": {k: getattr(stats, k) for k in STAGE1_STATS},
+        "key": np.asarray(key, np.uint32),
+        "i": i32(i),
+        "max_pairs": i32(max_pairs),
+        "max_span": i32(max_span),
+        "growths": i32(growths),
+    }
+
+
+def stage1_state_from_tree(tree: dict, device="cuda") -> dict:
+    """A restored stage-1 tree (``load_checkpoint`` into a
+    ``stage1_checkpoint_tree`` template, or the part of one an older
+    checkpoint holds) as the port's state: ``cloud`` a ``GaussianCloud``,
+    ``opt_state`` the keywords of ``Stage1Adam.load_state``, ``stats`` the
+    fields of ``DensifyStats``, ``key`` a uint32[2] array, and ``i``,
+    ``max_pairs``, ``max_span``, ``growths`` as ints where present."""
+    t = lambda a: torch.from_numpy(np.array(a)).to(device)  # noqa: E731
+    opt = tree["opt_state"]
+    out = {
+        "cloud": GaussianCloud(**{k: t(tree["cloud"][k]) for k in CLOUD_KEYS}),
+        "opt_state": {"count": int(opt["count"]), "mu": {k: t(v) for k, v in opt["mu"].items()},
+                      "nu": {k: t(v) for k, v in opt["nu"].items()}},
+        "stats": {k: t(tree["stats"][k]) for k in STAGE1_STATS},
+        "key": np.asarray(tree["key"], np.uint32),
+    }
+    out.update({k: int(tree[k]) for k in ("i", "max_pairs", "max_span", "growths") if k in tree})
+    return out
 
 
 def load_stage2_net(path) -> dict[str, torch.Tensor]:

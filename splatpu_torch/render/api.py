@@ -22,6 +22,11 @@ batched) camera in one call.  ``impl``:
 With ``config=None`` the budget is ``default_config``'s, at 16 px tiles for
 the padded impls and 32 px otherwise, as in the JAX package.  Every impl is
 differentiable in the per-Gaussian inputs and ``bg``.
+
+``render_dual(args, colors_b, camera, bg, impl, config)`` is stage 1's
+render: one preprocess and binning per view, two composites (the image
+from ``args.colors``, the segmentation from ``colors_b``), and the
+``means2d_offset`` collector's gradient from the first composite only.
 """
 
 from __future__ import annotations
@@ -30,13 +35,19 @@ import dataclasses
 
 import torch
 
-from splatpu_torch.core.projection import preprocess, tile_rect
+from splatpu_torch.core.projection import offset_pixel_scale, preprocess, tile_rect
 from splatpu_torch.core.types import Camera, RenderArgs
-from splatpu_torch.render.binning import DEFAULT_TILE, BinningConfig, tile_grid
-from splatpu_torch.render.exact import render_exact
+from splatpu_torch.render.binning import DEFAULT_TILE, BinningConfig, pair_streams, tile_grid
+from splatpu_torch.render.exact import (
+    background,
+    bin_views,
+    check_kernel_limits,
+    composite_streams,
+    render_exact,
+)
 from splatpu_torch.render.oracle import render_oracle
-from splatpu_torch.render.padded import render_padded
-from splatpu_torch.render.stream import render_stream
+from splatpu_torch.render.padded import composite_stream, render_padded
+from splatpu_torch.render.stream import composite_pairs, render_stream, stream_output
 from splatpu_torch.render.types import RenderOutput
 
 IMPLS = ("cuda", "plain", "cuda_padded", "plain_padded", "stream", "oracle")
@@ -71,6 +82,85 @@ def render(
     return render_exact(args, camera, bg, config, impl=impl)
 
 
+def render_dual(
+    args: RenderArgs,
+    colors_b: torch.Tensor,
+    camera: Camera,
+    bg=None,
+    impl: str = "auto",
+    config: BinningConfig | None = None,
+) -> tuple[RenderOutput, RenderOutput]:
+    """Two composites over one shared preprocess and binning per view
+    (``splatpu/render/api.py:73-163``): the primary with ``args.colors``,
+    the secondary with ``colors_b`` (N, C_b), e.g. the segmentation masks.
+
+    The gradient contract is the reference's: ``args.means2d_offset``
+    takes its cotangent from the primary render only; every other input
+    takes gradients from both.  The secondary's pixel positions are
+    ``mean2d + (off.detach() - off) * wh``: the same values bit for bit,
+    with the offset's lineage cancelled.  ``bg`` (default zeros) serves
+    both, so ``colors_b`` has the primary's channel count when it is given.
+    """
+    impl = resolve_impl(impl, args.means3d.device)
+    if impl == "oracle":
+        off = args.means2d_offset
+        seg_args = dataclasses.replace(
+            args, colors=colors_b, means2d_offset=None if off is None else off.detach())
+        return render_oracle(args, camera, bg), render_oracle(seg_args, camera, bg)
+    if config is None:
+        config = default_config(args.n, tile=16 if impl in PADDED_IMPLS else DEFAULT_TILE)
+    dev = args.means3d.device
+    bg = background(bg, args.colors.shape[1], dev)
+    off = args.means2d_offset
+    wh = offset_pixel_scale(camera)
+
+    def lineage_cut(i, mean2d):
+        """View i's secondary pixel positions."""
+        if off is None:
+            return mean2d
+        o = off if off.dim() == 2 else off[i]
+        return mean2d + (o.detach() - o) * wh
+
+    if impl in ("cuda", "plain"):
+        check_kernel_limits(config, args.colors.shape[1])
+        streams = bin_views(args, camera, config)
+        mean2d_b = [lineage_cut(i, s.splats.mean2d) for i, s in enumerate(streams)]
+        return (
+            composite_streams(streams, camera, config, bg, args.colors, impl=impl),
+            composite_streams(streams, camera, config, bg, colors_b, impl=impl, mean2d=mean2d_b),
+        )
+    streams = pair_streams(args, camera, config)
+    mean2d_b = [lineage_cut(i, s.splats.mean2d) for i, s in enumerate(streams)]
+    if impl == "stream":
+        def composite(colors, mean2d):
+            return stream_output(streams, [
+                composite_pairs(s, camera.view(i), config, bg, g_colors=colors,
+                                g_mean2d=None if mean2d is None else mean2d[i])
+                for i, s in enumerate(streams)
+            ])
+
+        return composite(args.colors, None), composite(colors_b, mean2d_b)
+    padded = PADDED_IMPLS[impl]
+    return (
+        composite_stream(streams, camera, config, bg, impl=padded),
+        composite_stream(streams, camera, config, bg, impl=padded, g_colors=colors_b,
+                         g_mean2d=mean2d_b),
+    )
+
+
+def resolve_binning(n_gaussians: int, config: BinningConfig | None = None,
+                    overrides: dict | None = None) -> BinningConfig:
+    """An explicit ``config`` wins; otherwise ``default_config(n)`` at the
+    overrides' tile (32 px without one) with the other overrides applied on
+    top, so that one flag such as --tile keeps the sizing of the others
+    (``splatpu/render/api.py:182-195``)."""
+    if config is not None:
+        return config
+    ov = dict(overrides or {})
+    tile = ov.pop("tile", DEFAULT_TILE)
+    return dataclasses.replace(default_config(n_gaussians, tile=tile), **ov)
+
+
 def default_config(n_gaussians: int, tile: int = DEFAULT_TILE) -> BinningConfig:
     """32 px tiles with a ~4-pairs-per-Gaussian budget (8 at 16 px tiles),
     rounded up to the chunk size."""
@@ -90,7 +180,7 @@ def measure_binning_demand(
     tiles_x, tiles_y = tile_grid(cameras.width, cameras.height, tile)
     totals, spans = [], []
     for i in range(cameras.num_views):
-        sp = preprocess(args, cameras.view(i))
+        sp = preprocess(args.for_view(i), cameras.view(i))
         tx0, ty0, tx1, ty1 = tile_rect(sp.mean2d, sp.radius, tiles_x, tiles_y, tile)
         count = torch.where(sp.visible, (tx1 - tx0) * (ty1 - ty0), torch.zeros_like(tx0))
         totals.append(count.sum())

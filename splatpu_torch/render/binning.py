@@ -146,6 +146,12 @@ def build_pair_stream(args: RenderArgs, camera: Camera, config: BinningConfig) -
     )
 
 
+def pair_streams(args: RenderArgs, camera: Camera, config: BinningConfig) -> list[PairStream]:
+    """The padded pair stream of every view of ``camera``."""
+    return [build_pair_stream(args.for_view(i), camera.view(i), config)
+            for i in range(camera.num_views)]
+
+
 def _pair_stream_integers(sp: Splats2D, width: int, height: int, config: BinningConfig) -> dict:
     tiles_x, tiles_y = tile_grid(width, height, config.tile)
     num_tiles = tiles_x * tiles_y
@@ -225,14 +231,18 @@ def _pair_stream_integers(sp: Splats2D, width: int, height: int, config: Binning
     )
 
 
-def gather_pair_records(stream: PairStream):
+def gather_pair_records(stream: PairStream, g_colors=None, g_mean2d=None):
     """Per-pair (mean2d, conic, color, opacity, depth) in padded order;
-    padding positions get opacity 0, so they never composite."""
+    padding positions get opacity 0, so they never composite.  ``g_colors``
+    and ``g_mean2d`` replace the stream's colour source and pixel positions
+    (``render_dual``)."""
     g = stream.gid.long()
     sp = stream.splats
     valid = stream.tile < stream.start.shape[0]
     opacity = stream.g_opacity[g]
+    mean2d = sp.mean2d if g_mean2d is None else g_mean2d
+    colors = stream.g_colors if g_colors is None else g_colors
     return (
-        sp.mean2d[g], sp.conic[g], stream.g_colors[g],
+        mean2d[g], sp.conic[g], colors[g],
         torch.where(valid, opacity, torch.zeros_like(opacity)), sp.depth[g],
     )

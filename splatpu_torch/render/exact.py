@@ -252,17 +252,26 @@ def build_exact_stream(args: RenderArgs, camera: Camera, config: BinningConfig) 
     return bin_splats(sp, args.opacities[:, 0], camera.width, camera.height, config)
 
 
-def composite_inputs(args: RenderArgs, camera: Camera, config: BinningConfig):
-    """Bin every view of ``camera``: (streams, kernel inputs) where the kernel
-    inputs are the stacked ``table``, ``gid``, ``start``, ``end`` and the
-    tile ``geometry`` keywords the composite takes."""
-    views = [camera.view(i) for i in range(camera.num_views)]
-    streams = [build_exact_stream(args, cam, config) for cam in views]
+def bin_views(args: RenderArgs, camera: Camera, config: BinningConfig) -> list[ExactStream]:
+    """Preprocess and bin every view of ``camera`` (each view with its own
+    slice of a per-view ``means2d_offset``)."""
+    return [build_exact_stream(args.for_view(i), camera.view(i), config)
+            for i in range(camera.num_views)]
+
+
+def table_inputs(streams: list[ExactStream], camera: Camera, config: BinningConfig, colors,
+                 mean2d=None) -> dict:
+    """The composite's kernel inputs over binned views: the stacked
+    ``table`` packed from each view's splats with ``colors`` (N, C), the
+    stacked ``gid``, ``start``, ``end``, the tile ``geometry`` keywords.
+    ``mean2d``: per-view (N, 2) pixel positions in place of the splats'
+    (``render_dual``'s secondary lineage)."""
     tiles_x, tiles_y = tile_grid(camera.width, camera.height, config.tile)
-    inputs = dict(
+    return dict(
         table=torch.stack([
-            pack_table(s.splats.mean2d, s.splats.conic, s.g_opacity, s.splats.depth, args.colors)
-            for s in streams
+            pack_table(s.splats.mean2d if mean2d is None else mean2d[i], s.splats.conic,
+                       s.g_opacity, s.splats.depth, colors)
+            for i, s in enumerate(streams)
         ]),
         gid=torch.stack([s.gid for s in streams]),
         start=torch.stack([s.start for s in streams]),
@@ -272,7 +281,13 @@ def composite_inputs(args: RenderArgs, camera: Camera, config: BinningConfig):
             width=camera.width, height=camera.height,
         ),
     )
-    return streams, inputs
+
+
+def composite_inputs(args: RenderArgs, camera: Camera, config: BinningConfig):
+    """Bin every view of ``camera``: (streams, ``table_inputs`` with
+    ``args.colors``)."""
+    streams = bin_views(args, camera, config)
+    return streams, table_inputs(streams, camera, config, args.colors)
 
 
 # (impl, config.kernel) -> (forward composite, backward composite, routing)
@@ -334,23 +349,16 @@ class CompositeTable(torch.autograd.Function):
         return d_table, d_bg, None, None, None, None, None, None, None, None
 
 
-def render_exact(
-    args: RenderArgs, camera: Camera, bg=None, config: BinningConfig = BinningConfig(),
-    impl: str = "cuda",
-) -> RenderOutput:
-    """Bin every view of ``camera`` and composite all of them in one call:
-    the CUDA kernels (``impl="cuda"``) or their plain versions (``"plain"``),
-    K1/K2 or K4 as ``config.kernel`` says.  Differentiable in every
-    per-Gaussian input of ``args`` and in ``bg``."""
-    c = args.colors.shape[1]
-    dev = args.means3d.device
-    if bg is None:
-        bg = torch.zeros((c,), dtype=torch.float32, device=dev)
-    bg = torch.as_tensor(bg, dtype=torch.float32, device=dev).contiguous()
+def composite_streams(streams: list[ExactStream], camera: Camera, config: BinningConfig, bg,
+                      colors, impl: str = "cuda", mean2d=None) -> RenderOutput:
+    """Composite binned views in one call, the table packed with ``colors``
+    (and ``mean2d``, see ``table_inputs``): the CUDA kernels
+    (``impl="cuda"``) or their plain versions (``"plain"``), K1/K2 or K4 as
+    ``config.kernel`` says."""
     if impl not in ("cuda", "plain"):
         raise ValueError(f"unknown composite impl: {impl!r}")
-    check_kernel_limits(config, c)
-    streams, k = composite_inputs(args, camera, config)
+    check_kernel_limits(config, colors.shape[1])
+    k = table_inputs(streams, camera, config, colors, mean2d)
     offsets = torch.stack([s.offsets for s in streams])
     counts = torch.stack([s.counts for s in streams])
     lane = torch.stack([s.lane for s in streams])
@@ -368,3 +376,24 @@ def render_exact(
         span_overflowed=torch.stack([s.span_overflowed for s in streams]),
         total_pairs=torch.stack([s.total_pairs for s in streams]),
     )
+
+
+def background(bg, c: int, device) -> torch.Tensor:
+    """``bg`` as a contiguous float32 (C,) tensor on ``device``; zeros for None."""
+    if bg is None:
+        return torch.zeros((c,), dtype=torch.float32, device=device)
+    return torch.as_tensor(bg, dtype=torch.float32, device=device).contiguous()
+
+
+def render_exact(
+    args: RenderArgs, camera: Camera, bg=None, config: BinningConfig = BinningConfig(),
+    impl: str = "cuda",
+) -> RenderOutput:
+    """Bin every view of ``camera`` and composite all of them in one call
+    (``composite_streams``).  Differentiable in every per-Gaussian input of
+    ``args`` and in ``bg``."""
+    c = args.colors.shape[1]
+    bg = background(bg, c, args.means3d.device)
+    check_kernel_limits(config, c)  # before binning: a refused budget bins nothing
+    return composite_streams(bin_views(args, camera, config), camera, config, bg, args.colors,
+                             impl=impl)

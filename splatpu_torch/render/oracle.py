@@ -91,7 +91,8 @@ def render_oracle(args: RenderArgs, camera: Camera, bg=None) -> RenderOutput:
     if bg is None:
         bg = torch.zeros((c,), dtype=torch.float32, device=dev)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
-    views = [_render_view(args, camera.view(i), bg) for i in range(camera.num_views)]
+    views = [_render_view(args.for_view(i), camera.view(i), bg)
+             for i in range(camera.num_views)]
     image, depth, tfin, radii = (torch.stack(x) for x in zip(*views))
     v = camera.num_views
     none = torch.zeros((v,), dtype=torch.bool, device=dev)

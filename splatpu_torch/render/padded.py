@@ -37,7 +37,7 @@ import torch
 
 from splatpu_torch import _build
 from splatpu_torch.core.types import Camera, RenderArgs
-from splatpu_torch.render.binning import BinningConfig, PairStream, build_pair_stream, tile_grid
+from splatpu_torch.render.binning import BinningConfig, PairStream, pair_streams, tile_grid
 from splatpu_torch.render.composite import (
     MAX_C_MANUAL,
     REC_GEOM,
@@ -193,11 +193,14 @@ class CompositeG(torch.autograd.Function):
 
 
 def composite_stream(streams: list[PairStream], camera: Camera, config: BinningConfig, bg,
-                     impl: str = "cuda") -> RenderOutput:
+                     impl: str = "cuda", g_colors=None, g_mean2d=None) -> RenderOutput:
     """Composite the pre-built pair streams of ``camera``'s views (one per
     view) in one call: K5 (``impl="cuda"``) or its plain versions
-    (``"plain"``)."""
-    c = streams[0].g_colors.shape[1]
+    (``"plain"``).  ``g_colors`` (N, C) and ``g_mean2d`` (per view, (N, 2))
+    replace the streams' colours and pixel positions
+    (``splatpu/render/pallas_composite.py:555-567``; ``render_dual``)."""
+    colors = streams[0].g_colors if g_colors is None else g_colors
+    c = colors.shape[1]
     if c > MAX_C:
         raise ValueError(f"at most {MAX_C} color channels supported")
     if config.tile != TILE:
@@ -211,8 +214,9 @@ def composite_stream(streams: list[PairStream], camera: Camera, config: BinningC
     bg = torch.as_tensor(bg, dtype=torch.float32, device=dev).contiguous()
     tiles_x, tiles_y = tile_grid(camera.width, camera.height, TILE)
     table = torch.stack([
-        pack_table(s.splats.mean2d, s.splats.conic, s.g_opacity, s.splats.depth, s.g_colors)
-        for s in streams
+        pack_table(s.splats.mean2d if g_mean2d is None else g_mean2d[i], s.splats.conic,
+                   s.g_opacity, s.splats.depth, colors)
+        for i, s in enumerate(streams)
     ])
     gid = torch.stack([s.gid for s in streams])
     stack = lambda f: torch.stack([getattr(s, f) for s in streams])  # noqa: E731
@@ -240,5 +244,4 @@ def render_padded(args: RenderArgs, camera: Camera, bg=None,
     of ``args`` and in ``bg``."""
     if bg is None:
         bg = torch.zeros((args.colors.shape[1],), dtype=torch.float32, device=args.means3d.device)
-    streams = [build_pair_stream(args, camera.view(i), config) for i in range(camera.num_views)]
-    return composite_stream(streams, camera, config, bg, impl=impl)
+    return composite_stream(pair_streams(args, camera, config), camera, config, bg, impl=impl)

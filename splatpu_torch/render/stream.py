@@ -28,8 +28,8 @@ from splatpu_torch.core.types import Camera, RenderArgs
 from splatpu_torch.render.binning import (
     BinningConfig,
     PairStream,
-    build_pair_stream,
     gather_pair_records,
+    pair_streams,
     tile_grid,
 )
 from splatpu_torch.render.composite import untile
@@ -46,10 +46,13 @@ def segmented_exclusive(values: torch.Tensor, is_start: torch.Tensor) -> torch.T
     return excl - excl[seg_start]
 
 
-def composite_pairs(stream: PairStream, camera: Camera, config: BinningConfig, bg):
+def composite_pairs(stream: PairStream, camera: Camera, config: BinningConfig, bg,
+                    g_colors=None, g_mean2d=None):
     """Composite one view's stream: (image (C, H, W), depth (H, W), final T
-    (H, W), last padded position (H, W) int32)."""
-    r_mean2d, r_conic, r_color, r_opacity, r_depth = gather_pair_records(stream)
+    (H, W), last padded position (H, W) int32).  ``g_colors`` / ``g_mean2d``
+    as in ``gather_pair_records``."""
+    r_mean2d, r_conic, r_color, r_opacity, r_depth = gather_pair_records(
+        stream, g_colors, g_mean2d)
     tile_px = config.tile
     tiles_x, tiles_y = tile_grid(camera.width, camera.height, tile_px)
     num_tiles = tiles_x * tiles_y
@@ -109,16 +112,8 @@ def composite_pairs(stream: PairStream, camera: Camera, config: BinningConfig, b
     return full[:c], full[c], full[c + 1], last_hw.to(torch.int32)
 
 
-def render_stream(args: RenderArgs, camera: Camera, bg=None,
-                  config: BinningConfig = BinningConfig()) -> RenderOutput:
-    """Bin every view of ``camera`` into its pair stream and composite it;
-    differentiable in every per-Gaussian input of ``args`` and in ``bg``."""
-    dev = args.means3d.device
-    if bg is None:
-        bg = torch.zeros((args.colors.shape[1],), dtype=torch.float32, device=dev)
-    bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
-    streams = [build_pair_stream(args, camera.view(i), config) for i in range(camera.num_views)]
-    outs = [composite_pairs(s, camera.view(i), config, bg) for i, s in enumerate(streams)]
+def stream_output(streams: list[PairStream], outs: list) -> RenderOutput:
+    """The ``RenderOutput`` of per-view ``composite_pairs`` results."""
     stack = lambda i: torch.stack([o[i] for o in outs])  # noqa: E731
     return RenderOutput(
         image=stack(0),
@@ -130,3 +125,16 @@ def render_stream(args: RenderArgs, camera: Camera, bg=None,
         span_overflowed=torch.stack([s.span_overflowed for s in streams]),
         total_pairs=torch.stack([s.total_pairs for s in streams]),
     )
+
+
+def render_stream(args: RenderArgs, camera: Camera, bg=None,
+                  config: BinningConfig = BinningConfig()) -> RenderOutput:
+    """Bin every view of ``camera`` into its pair stream and composite it;
+    differentiable in every per-Gaussian input of ``args`` and in ``bg``."""
+    dev = args.means3d.device
+    if bg is None:
+        bg = torch.zeros((args.colors.shape[1],), dtype=torch.float32, device=dev)
+    bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
+    streams = pair_streams(args, camera, config)
+    return stream_output(streams, [composite_pairs(s, camera.view(i), config, bg)
+                                   for i, s in enumerate(streams)])

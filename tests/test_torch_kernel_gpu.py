@@ -467,3 +467,56 @@ def test_forward_body_matches_plain(cuda, kernel, tile, channels):
         ref_rows = bwd_plain(*kin, got[2], got[3], *cot, **geo)
         assert torch.isfinite(rows).all() and rows.abs().max() > 0
         assert row_scaled_err(rows, ref_rows) <= 1e-4
+
+
+def test_stage1_dual_step_cuda_matches_plain(cuda):
+    """One stage-1 iteration over 2 views (``render_dual``: one binning, an
+    image and a segmentation composite; image + 3 x segmentation loss)
+    through K1, K2 and the routing against the plain versions: losses 1e-5
+    relative, images 2e-5, ``last`` identical, every parameter's gradient
+    and the means2d_offset collector's 1e-4 scaled per row; two launches
+    of each kernel per step; two CUDA runs bitwise identical."""
+    import splatpu_torch.render.route as route
+    from splatpu_torch.core.types import cloud_from_arrays
+    from splatpu_torch.tools.measure import row_scaled_err
+    from splatpu_torch.train.optim import Stage1Adam
+    from splatpu_torch.train.stage1 import Stage1Config, Stage1Steps
+
+    rng = np.random.default_rng(23)
+    n, views, w, h = 1500, 3, 96, 64
+    q = rng.normal(size=(n, 4))
+    fg = (rng.uniform(size=n) < 0.6).astype(np.float32)
+    cloud = cloud_from_arrays(
+        means=rng.uniform(-1, 1, (n, 3)), colors=rng.uniform(0, 1, (n, 3)),
+        segmentation_masks=np.stack([fg, 0 * fg, 1 - fg], -1),
+        rotation_quaternions=q / np.linalg.norm(q, axis=1, keepdims=True),
+        opacity_logits=rng.uniform(-1, 4, (n, 1)),
+        log_scales=np.log(rng.uniform(0.02, 0.15, (n, 3))), capacity=2048, device=cuda)
+    _, cams = scene(23, 8, views, w, h, 3, cuda)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda)  # noqa: E731
+    staged = (cams.w2c, cams.K, t(rng.uniform(size=(views, 3, h, w))),
+              t(rng.uniform(size=(views, 3, h, w))))
+    binning = BinningConfig(tile=32, max_span=256, max_pairs=1 << 17, chunk_pairs=256)
+    pick = torch.tensor([2, 0], device=cuda)
+    runs = []
+    for impl in ("cuda", "cuda", "plain"):
+        steps = Stage1Steps(Stage1Config(renderer=impl), 4.0, staged, w, h,
+                            Stage1Adam(cloud.param_dict()))
+        before = (composite.LAUNCHES, composite.BWD_LAUNCHES, route.LAUNCHES)
+        runs.append(steps.forward_backward(cloud, pick, binning))
+        torch.cuda.synchronize()
+        after = (composite.LAUNCHES, composite.BWD_LAUNCHES, route.LAUNCHES)
+        assert [a - b for a, b in zip(after, before)] == ([2, 2, 2] if impl == "cuda"
+                                                          else [0, 0, 0])
+    got, again, ref = runs
+    assert float(got.total) == pytest.approx(float(ref.total), rel=1e-5)
+    for a, b in ((got.image, ref.image), (got.segmentation, ref.segmentation)):
+        assert float((a.image - b.image).abs().max()) <= 2e-5
+        assert torch.equal(a.last_contributor, b.last_contributor)
+    assert float(got.offset_grad.abs().max()) > 0
+    assert row_scaled_err(got.offset_grad, ref.offset_grad) <= 1e-4
+    assert torch.equal(got.offset_grad, again.offset_grad)
+    for k, g in got.grads.items():
+        assert torch.isfinite(g).all(), k
+        assert row_scaled_err(g, ref.grads[k]) <= 1e-4, k
+        assert torch.equal(g, again.grads[k]), k
