@@ -140,11 +140,13 @@ Phases, each printed with its wall time and bounded by a watchdog:
    and K2 at the stage-1 shape (one view, the fitted cloud of 201,216
    slots) against their plain versions, timed, with their bounds.
 17. stage1_options: a scaled schedule (mutations every 10 from 10, opacity
-   reset and big prune from 20, the final prune at 30), 4 views per step,
+   reset and big prune from 20, the window and its final prune at 40, past
+   the last iteration, so the resumed clouds stay alive), 4 views per step,
    the pair budget a quarter of the initial cloud's demand with an
    overflow check every 5 iterations: 20 iterations writing a checkpoint,
    then two resumes from it to 40, which must carry ``i``, the growths and
-   the grown budget and end bitwise equal; then 4 iterations each with
+   the grown budget and end bitwise equal with Gaussians alive; then 4
+   iterations each with
    ``kernel="manual"`` (K4) and ``renderer="cuda_padded"`` at 16 px (K5),
    each launching only its own kernels.
 18. cli_densify: the config-2 scene written as a sequence (one frame of 27
@@ -153,6 +155,47 @@ Phases, each printed with its wall time and bounded by a watchdog:
    to S1_CLI_ITERATIONS[1]; the metrics rows, the written cloud (read by
    ``io.checkpoint.load_cloud``), the set-up times (sequence load, each
    checkpoint write of the 201,216-slot state).
+
+The distributed modes (``splatpu_torch.dist``): ranks started by
+``dist.launch`` share the card over gloo (NCCL refuses two ranks on one
+device); each rank counts its own kernel launches (zeroed just before its
+path, read just after) and sends them back.  These phases show that the
+sharded paths run and agree with the single-process run, not that they
+scale: every rank computes on the same card.
+
+19. dist_render: the config-3 cloud and one 1280x720 orbit view cut into
+   DIST_STRIPS strips, one per rank, through K1
+   (``make_tile_sharded_render``), the strips gathered into the whole
+   image on every rank: each strip, and the gathered image, within 2e-5
+   of the whole render (strips are expected bit for bit), the gather
+   changing no value, K1 once per rank; prints each rank's rows' error and
+   how many of its pixels name another last contributor (a Gaussian id)
+   than the whole render.
+20. dist_train: config 3 at full width (the real cloud, the checkpoint's
+   network and head settings with a fresh Adam, 27 rig views at 1280x720
+   as uint8, five per step padded to six), 2 timesteps x 2 iterations with
+   ``mesh_cameras=2`` over 2 ranks, against the single-process ``train``
+   of the same config and start: every step's loss
+   1e-5 relative, the final parameters within 2e-2 of how far they moved,
+   both ranks' parameters bitwise equal, two sharded runs bitwise equal,
+   K1, K2 and the routing once per step in each rank; ms per step of both.
+21. dist_2d: the same on the 2 x 2 grid (4 ranks: ``mesh_cameras=2``,
+   ``mesh_tiles=2``), 2 timesteps x 2 iterations (the depth of the JAX
+   package's test of this step).
+22. dist_stage1: config 2 at full width with ``mesh_tiles=2`` (2 ranks)
+   for DIST_S1_ITERATIONS iterations (the JAX package's test's), a
+   mutation (clones) at 2 and a budget of four times the initial cloud's
+   demand, against the
+   single-process ``fit``: every iteration's loss 1e-5 relative, no
+   overflow, the alive masks identical after each mutation, the means and
+   opacity logits within rtol 1e-4 and atol 1e-6 (the JAX package's gate),
+   both ranks' clouds bitwise equal, K1, K2 and the routing twice per
+   iteration in each rank.
+23. train_batch: two config-3 sequences written as the ``cli`` phase
+   writes one (frames 0-2 and 5-7 of the motion) trained by
+   ``cli.train_batch`` over 2 processes (ranks), one sequence each, 2
+   iterations x 2 timesteps; each sequence's network bitwise equal to that
+   of an independent ``cli.train`` run of it.
 
 Prints one ``{"kernels": [...]}`` JSON line (the routing once per slot
 mode, each with the launches of its paths; the forwards also with their
@@ -204,6 +247,13 @@ S1_OPTION_VIEWS = 4        # stage1_options: views per step
 S1_OPTION_ITERATIONS = (20, 40)  # stage1_options: checkpoint at the first, resume to the second
 S1_PATH_ITERATIONS = 4     # stage1_options: the K4 and K5 runs
 S1_CLI_ITERATIONS = (30, 40)     # cli_densify: first run, then resumed to
+DIST_STRIPS = (2, 4)       # dist_render: strips per view, one rank each
+DIST_ITERATIONS = 2        # dist_train, dist_2d: sequence iterations (config 3: 40)
+DIST_TIMESTEPS = 2         # dist_train, dist_2d: timesteps (config 3: 150)
+DIST_S1_ITERATIONS = 4     # dist_stage1: iterations (config 2: 30,000; JAX's test: 4)
+DIST_S1_MUTATE = 2         # dist_stage1: the mutation (clones) at 2
+DIST_TIMEOUT_S = 240       # every launch of ranks: its result within this, or it fails
+DIST_RENDERER = "cuda"     # the distributed phases' render path
 BIG_P = (1 << 24) + (1 << 20)  # gid slots of K4's large-budget call
 BIG_BASE = 1 << 24             # where its segments start
 BIG_TILES = 4
@@ -220,16 +270,6 @@ PEAK_BYTES_S = 3.35e12
 # multiply-add per colour channel and for depth (2 each).
 OPS_PER_EVAL = 16
 
-# Every kernel's launch counter: (module, attribute).
-COUNTERS = {
-    "composite_fwd": ("splatpu_torch.render.composite", "LAUNCHES"),
-    "composite_bwd": ("splatpu_torch.render.composite", "BWD_LAUNCHES"),
-    "route_pairs": ("splatpu_torch.render.route", "LAUNCHES"),
-    "composite_manual_fwd": ("splatpu_torch.render.composite", "MANUAL_LAUNCHES"),
-    "composite_manual_bwd": ("splatpu_torch.render.composite", "MANUAL_BWD_LAUNCHES"),
-    "padded_fwd": ("splatpu_torch.render.padded", "LAUNCHES"),
-    "padded_bwd": ("splatpu_torch.render.padded", "BWD_LAUNCHES"),
-}
 # ptxas's (mangled) kernel names -> the names printed with their registers:
 # the 3-channel instances at the tiles the paths use (the table kernels'
 # template arguments are <C, tile>), the routing's 10 rows in both slot
@@ -271,16 +311,16 @@ def ops_bwd_per_live(c: int) -> int:
 
 
 def launch_counts() -> dict:
-    import importlib
+    """Every kernel's launch counter (``splatpu_torch.obs.profiling.COUNTERS``)."""
+    from splatpu_torch.obs import profiling
 
-    return {k: getattr(importlib.import_module(m), a) for k, (m, a) in COUNTERS.items()}
+    return profiling.launch_counts()
 
 
 def zero_counts() -> None:
-    import importlib
+    from splatpu_torch.obs import profiling
 
-    for m, a in COUNTERS.values():
-        setattr(importlib.import_module(m), a, 0)
+    profiling.zero_counts()
 
 
 class StepLog:
@@ -673,7 +713,7 @@ def train_path(name, cloud, views, tcfg, expected, n_steps, per_step=1):
             fail(f"{name} step {step_idx}: non-finite loss {m['total']}")
         if not (np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0):
             fail(f"{name} step {step_idx}: grad_norm {m['grad_norm']}")
-        if any(m["launched"][k] != (per_step if k in expected else 0) for k in COUNTERS):
+        if any(n != (per_step if k in expected else 0) for k, n in m["launched"].items()):
             fail(f"{name} step {step_idx}: kernel launches {m['launched']}")
         if m["binning_overflow"] and step_idx not in log.growth_steps:
             fail(f"{name} step {step_idx}: binning overflow not followed by growth")
@@ -1436,8 +1476,11 @@ def stage1_options_path(dev, pc, views, radius):
     from splatpu_torch.render.api import measure_binning_demand, resolve_binning
 
     cap = s1_capacity(len(pc))
+    # The window ends past the last iteration: its final prune (opacity
+    # under 0.25) just after the reset to 0.01 at 20 would leave no
+    # Gaussian alive to compare.
     dcfg = DensifyConfig(mutate_start=10, mutate_every=10, opacity_reset_every=20,
-                         prune_big_start=20, window_end=30)
+                         prune_big_start=20, window_end=S1_OPTION_ITERATIONS[1])
     cams = Camera(w2c=torch.from_numpy(np.stack([v.w2c for v in views])).to(dev),
                   K=torch.from_numpy(np.stack([v.K for v in views])).to(dev),
                   width=SERVE_SIZE[0], height=SERVE_SIZE[1])
@@ -1460,8 +1503,8 @@ def stage1_options_path(dev, pc, views, radius):
         log = Stage1Log()
         stage1.fit(pc, views, radius, base, logger=log, device=DEVICE)
         saved = load_checkpoint(ckpt)
-        print("  (the schedule resets every opacity to 0.01 at 20; at 30 the final prune drops"
-              " those still under 0.25)", flush=True)
+        print("  (the schedule resets every opacity to 0.01 at 20 and mutates again at 30)",
+              flush=True)
         print(f"  first run: {S1_OPTION_ITERATIONS[0]} iterations; checkpoint i"
               f" {int(saved['i'])}, growths {int(saved['growths'])}, max_pairs"
               f" {int(saved['max_pairs'])}, max_span {int(saved['max_span'])}", flush=True)
@@ -1504,11 +1547,14 @@ def stage1_options_path(dev, pc, views, radius):
         torch.cuda.synchronize()
         out["stage1_options"] = launch_counts()
     a, b = resumed
+    if not (int(a.n_alive()) > 0 and int(b.n_alive()) > 0):
+        fail(f"stage1_options: the resumed clouds hold {int(a.n_alive())} and {int(b.n_alive())}"
+             " alive Gaussians")
     same = {k: torch.equal(getattr(a, k), getattr(b, k))
             for k in ("alive", "means", "colors", "segmentation_masks", "rotation_quaternions",
                       "opacity_logits", "log_scales")}
-    print(f"  the two resumed clouds at {S1_OPTION_ITERATIONS[1]}: bitwise equal {same}",
-          flush=True)
+    print(f"  the two resumed clouds at {S1_OPTION_ITERATIONS[1]} ({int(a.n_alive())} alive):"
+          f" bitwise equal {same}", flush=True)
     if not all(same.values()):
         fail("stage1_options: two resumes from one checkpoint differ")
     n_its = S1_OPTION_ITERATIONS[0] + 2 * (S1_OPTION_ITERATIONS[1] - S1_OPTION_ITERATIONS[0])
@@ -1634,6 +1680,364 @@ def cli_densify_path(dev, pc, views):
             fail(f"cli_densify: {k} launched {counts[k]} times")
     check_only(counts, expected, "cli_densify")
     return counts
+
+
+def rank_totals(results) -> dict:
+    """The ranks' launch counts, summed."""
+    return {k: sum(r["counts"][k] for r in results) for k in results[0]["counts"]}
+
+
+def check_ranks(results, where: str) -> None:
+    """Every rank imported nothing of JAX and reported its place."""
+    for i, r in enumerate(results):
+        if r["jax_modules"] or r["rank"] != i:
+            fail(f"{where}: rank {i} reports rank {r['rank']}, JAX modules {r['jax_modules']}")
+
+
+def launch_ranks(fn, n, args, where: str):
+    """``dist.launch`` of ``n`` ranks on the card, a rendezvous directory
+    of its own, every rank's output printed; the ranks' results."""
+    import tempfile
+
+    from splatpu_torch.dist.launch import launch
+
+    with tempfile.TemporaryDirectory(prefix="splatpu_ranks_") as rdv:
+        t0 = time.perf_counter()
+        results = launch(fn, n, args, rdv, device=DEVICE, timeout_s=DIST_TIMEOUT_S)
+    counts = [r["counts"] if "counts" in r else r["runs"][0]["counts"] for r in results]
+    print(f"  {where}: {n} ranks on one card over gloo, {time.perf_counter() - t0:.2f} s wall"
+          f" (start-up included); launches per rank"
+          f" {[{k: v for k, v in c.items() if v} for c in counts]}", flush=True)
+    check_ranks(results, where)
+    return results
+
+
+def dist_render_path(dev, cloud):
+    """dist_render (module docstring): the launches summed over the ranks."""
+    import numpy as np
+    import torch
+
+    from splatpu_torch.core.types import activate_cloud
+    from splatpu_torch.dist import ranks
+    from splatpu_torch.render.api import demand_binning, measure_binning_demand, render
+    from splatpu_torch.render.exact import composite_inputs
+    from splatpu_torch.train.inference import create_orbit_cameras
+
+    args = activate_cloud(cloud)
+    cam = next(iter(create_orbit_cameras(*SERVE_SIZE, device=dev).values()))
+    binning = demand_binning(*measure_binning_demand(args, cam))
+    with torch.no_grad():
+        full = render(args, cam, impl=DIST_RENDERER, config=binning)
+        _, k = composite_inputs(args, cam, binning)
+        gid = k["gid"].long()
+        last = full.last_contributor
+        full_gid = torch.where(last >= 0, torch.gather(gid, 1, last.clamp(min=0).reshape(
+            gid.shape[0], -1)).reshape(last.shape), -1).cpu().numpy()
+    image = full.image.cpu().numpy()
+    args_np = {f: getattr(args, f).detach().cpu().numpy()
+               for f in ("means3d", "colors", "rotations", "opacities", "scales")}
+    camera = dict(w2c=cam.w2c.cpu().numpy(), K=cam.K.cpu().numpy(), width=SERVE_SIZE[0],
+                  height=SERVE_SIZE[1])
+    total = {k: 0 for k in launch_counts()}
+    w, h = SERVE_SIZE
+    print(f"  one orbit view at {w}x{h}, {cloud.capacity} Gaussians, budget {binning.max_pairs}"
+          f" pairs, tile {binning.tile}", flush=True)
+    for n in DIST_STRIPS:
+        results = launch_ranks(ranks.strips_on_rank, n, (args_np, camera, n, DIST_RENDERER,
+                                                         binning, DEVICE),
+                               f"{n} strips")
+        bad = []
+        for r in results:
+            sh = r["strip"].shape[-2]  # the last strip ends with the image
+            rows = slice(min(r["row0"], h), min(r["row0"] + sh, h))  # empty below the image
+            n_rows = rows.stop - rows.start
+            own = (float(np.abs(r["strip"][..., :n_rows, :] - image[..., rows, :]).max())
+                   if n_rows else 0.0)
+            moved = int((r["image"][..., r["row0"]:r["row0"] + sh, :] != r["strip"]).sum())
+            err = float(np.abs(r["image"][..., :h, :] - image).max())
+            mism = int((r["last_gid"][..., :n_rows, :] != full_gid[..., rows, :]).sum())
+            print(f"  {n} strips, rank {r['rank']} (image rows {rows.start}..{rows.stop - 1}):"
+                  f" its strip max|d| {own:.3e} against the whole render's rows; the gathered"
+                  f" image holds it with {moved} values changed and lies {err:.3e} from the"
+                  f" whole render; last contributor (Gaussian id) differs on {mism} of"
+                  f" {n_rows * w} pixels", flush=True)
+            if not (own <= TOL["image"] and err <= TOL["image"]) or moved:
+                bad.append(r["rank"])
+            if r["counts"]["composite_fwd"] != 1:
+                fail(f"dist_render: rank {r['rank']} launched K1 {r['counts']['composite_fwd']}"
+                     " times, expected once")
+        if bad:
+            fail(f"dist_render: {n} strips, ranks {bad} outside {TOL['image']} of the whole"
+                 " render, or their strips changed by the gather")
+        for k, v in rank_totals(results).items():
+            total[k] += v
+    check_only(total, {"composite_fwd"}, "dist_render")
+    return total
+
+
+def dist_train_path(dev, cloud, base_cfg, card, name, cameras, tiles, timesteps):
+    """dist_train / dist_2d (module docstring): the launches summed over the
+    ranks of the sharded runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from splatpu_torch.dist import ranks
+    from splatpu_torch.tools.train_scene import render_targets
+
+    from splatpu_torch.io.checkpoint import load_stage2_net
+
+    cfg = dataclasses.replace(base_cfg, total_iterations=DIST_ITERATIONS,
+                              timestep_count=timesteps, renderer=DIST_RENDERER)
+    n_steps = DIST_ITERATIONS * timesteps
+    # The checkpoint's network, as the train phase starts from: a fresh
+    # zero-init head would make the first step's gradients of every other
+    # layer exactly 0, and Adam turns the next near-0 ones into whole steps.
+    init = {k: v.numpy() for k, v in load_stage2_net(RUN / "stage2_ckpt.msgpack").items()}
+    views = render_targets(cloud, timesteps, *SERVE_SIZE, impl="cuda", device=dev)
+    with tempfile.TemporaryDirectory(prefix="splatpu_dist_") as tmp:
+        vpath = str(Path(tmp) / "views.npz")
+        ranks.save_views(vpath, views)
+        del views
+        print(f"  config 3 at full width: {timesteps} timesteps x {DIST_ITERATIONS} iterations,"
+              f" 5 of 27 views at {SERVE_SIZE[0]}x{SERVE_SIZE[1]} per step (padded to 6), the"
+              f" checkpoint's network (hidden {cfg.hidden_dim} x {cfg.residual_blocks} blocks)"
+              f" with a fresh Adam; mesh {cameras} cameras x {tiles} tiles", flush=True)
+        torch.cuda.synchronize()
+        single = ranks.train_on_rank(str(CLOUD), vpath, cfg, DEVICE, init)["runs"][0]
+        results = launch_ranks(ranks.train_on_rank, cameras * tiles,
+                               (str(CLOUD), vpath, dataclasses.replace(
+                                   cfg, mesh_cameras=cameras, mesh_tiles=tiles), DEVICE, init, 2),
+                               name)
+    runs = [r["runs"] for r in results]
+    rows = runs[0][0]["rows"]
+    if [s for s, _ in rows] != [s for s, _ in single["rows"]] or len(rows) != n_steps:
+        fail(f"{name}: logged steps {[s for s, _ in rows]}, single {[s for s, _ in single['rows']]}")
+    worst = 0.0
+    for (step, a), (_, b) in zip(single["rows"], rows):
+        rel = abs(b["total"] - a["total"]) / abs(a["total"])
+        worst = max(worst, rel)
+        print(f"  step {step}: loss single {a['total']:.7f}, sharded {b['total']:.7f} (rel"
+              f" {rel:.2e}); grad_norm {a['grad_norm']:.5e} / {b['grad_norm']:.5e}; step ms"
+              f" {a['step_ms']:.2f} / {b['step_ms']:.2f}", flush=True)
+        if not rel <= 1e-5:
+            fail(f"{name} step {step}: loss {b['total']} against {a['total']} (rel {rel:.2e})")
+        if b["binning_overflow"]:
+            fail(f"{name} step {step}: binning overflow")
+    ratios = {}
+    for k, v in single["params"].items():
+        moved = float(np.abs(v - init[k]).max())
+        d = float(np.abs(runs[0][0]["params"][k] - v).max())
+        ratios[k] = d / moved if moved else (0.0 if d == 0 else np.inf)
+    worst_key = max(ratios, key=ratios.get)
+    ratio = ratios[worst_key]
+    a, b, s0 = (single["params"][worst_key], runs[0][0]["params"][worst_key], init[worst_key])
+    at = np.unravel_index(int(np.argmax(np.abs(b - a))), a.shape)
+    print(f"  {name}: the worst element, {worst_key}{list(at)}, moved {float(a[at] - s0[at]):.3e}"
+          f" in the single run and {float(b[at] - s0[at]):.3e} sharded; the tensor's largest"
+          f" move {float(np.abs(a - s0).max()):.3e}", flush=True)
+    equal_ranks = all(np.array_equal(rr[0]["params"][k], runs[0][0]["params"][k])
+                      for rr in runs for k in init)
+    equal_runs = all(np.array_equal(rr[1]["params"][k], rr[0]["params"][k])
+                     for rr in runs for k in init)
+    ms = lambda rs: float(np.median([m["step_ms"] for _, m in rs]))  # noqa: E731
+    print(f"  {name}: losses within {worst:.2e} relative; parameters within {ratio:.2e} of their"
+          f" movement (gate 2e-2; {worst_key}); every rank's parameters bitwise equal"
+          f" {equal_ranks}; two sharded runs bitwise equal {equal_runs}", flush=True)
+    print(f"  {name}: ms per step (CUDA events, median of {n_steps}) single process"
+          f" {ms(single['rows']):.2f}, {cameras * tiles} ranks sharing the card"
+          f" {ms(rows):.2f} (second run {ms(runs[0][1]['rows']):.2f}); wall s per run single"
+          f" {single['seconds']:.2f}, sharded {runs[0][0]['seconds']:.2f}; {card}", flush=True)
+    if not ratio <= 2e-2:
+        fail(f"{name}: parameters {ratio:.2e} of their movement from the single-process run")
+    if not (equal_ranks and equal_runs):
+        fail(f"{name}: ranks or runs differ")
+    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
+    for i, r in enumerate(results):
+        for run in r["runs"]:
+            if any(run["counts"][k] != n_steps for k in expected):
+                fail(f"{name}: rank {i} launched {run['counts']} in {n_steps} steps")
+    total = {k: sum(r["runs"][0]["counts"][k] for r in results)
+             for k in results[0]["runs"][0]["counts"]}
+    check_only(total, expected, name)
+    return total
+
+
+def dist_stage1_path(dev, pc, views, radius, card):
+    """dist_stage1 (module docstring): the launches summed over the ranks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import splatpu_torch.train.stage1 as stage1
+    from splatpu_torch.core.types import Camera, activate_cloud
+    from splatpu_torch.dist import ranks
+    from splatpu_torch.growth.densify import DensifyConfig
+    from splatpu_torch.render.api import demand_binning, measure_binning_demand
+
+    cap = s1_capacity(len(pc))
+    cams = Camera(w2c=torch.from_numpy(np.stack([v.w2c for v in views])).to(dev),
+                  K=torch.from_numpy(np.stack([v.K for v in views])).to(dev),
+                  width=SERVE_SIZE[0], height=SERVE_SIZE[1])
+    demand = measure_binning_demand(
+        activate_cloud(stage1.initialize_cloud(pc, cap, device=dev)), cams)
+    # Stage 1's Adam (eps 1e-15) moves a parameter whose gradient is
+    # rounding noise by a whole step with the noise's sign, so the strips'
+    # summation order parts the parameters from the single run's more with
+    # every iteration while the images stay identical; the JAX package
+    # holds them to its gate after 4 iterations, and so does this phase.
+    # Clones only (every densified Gaussian counts as small): a split places
+    # its children through the rotation of an isotropic Gaussian, moved so.
+    # The budget holds the cloned cloud: an overflow drops other splats in
+    # the strips than in the whole render.
+    cfg = stage1.Stage1Config(
+        iterations=DIST_S1_ITERATIONS, capacity_factor=S1_CAPACITY_FACTOR, renderer=DIST_RENDERER,
+        binning=demand_binning(4 * demand[0], demand[1]), densify=DensifyConfig(
+            mutate_start=DIST_S1_MUTATE, mutate_every=DIST_S1_MUTATE,
+            window_end=DIST_S1_MUTATE, clone_scale_factor=1e3))
+    print(f"  config 2 at full width: {len(views)} views at {SERVE_SIZE[0]}x{SERVE_SIZE[1]},"
+          f" {len(pc)} points, {cap} slots, {DIST_S1_ITERATIONS} iterations, the mutation at"
+          f" {DIST_S1_MUTATE} (clones only); budget"
+          f" {cfg.binning.max_pairs} pairs, span {cfg.binning.max_span} (initial demand {demand})",
+          flush=True)
+    as_np = lambda x: x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)  # noqa: E731
+    with tempfile.TemporaryDirectory(prefix="splatpu_dist_s1_") as tmp:
+        vpath = str(Path(tmp) / "views.npz")
+        ranks.save_views(vpath, [[dict(w2c=as_np(v.w2c), K=as_np(v.K), width=v.width,
+                                       height=v.height, image=as_np(v.image),
+                                       segmentation=as_np(v.segmentation)) for v in views]])
+        torch.cuda.synchronize()
+        single = ranks.fit_on_rank(pc, vpath, radius, cfg, device=DEVICE)
+        results = launch_ranks(ranks.fit_on_rank, 2, (pc, vpath, radius, dataclasses.replace(
+            cfg, mesh_tiles=2), DEVICE), "dist_stage1")
+    rows = results[0]["rows"]
+    if [s for s, _ in rows] != list(range(DIST_S1_ITERATIONS)):
+        fail(f"dist_stage1: logged iterations {[s for s, _ in rows]}")
+    worst = 0.0
+    for (i, a), (_, b) in zip(single["rows"], rows):
+        rel = abs(b["total_loss"] - a["total_loss"]) / abs(a["total_loss"])
+        worst = max(worst, rel)
+        if b["binning_overflow"] or a["binning_overflow"]:
+            fail(f"dist_stage1 iteration {i}: binning overflow")
+        if "cloned" in a:
+            print(f"  mutation {i}: single cloned {int(a['cloned'])}, split {int(a['split'])},"
+                  f" pruned {int(a['pruned'])}, n_alive {int(a['n_alive'])}; strips cloned"
+                  f" {int(b['cloned'])}, split {int(b['split'])}, pruned {int(b['pruned'])},"
+                  f" n_alive {int(b['n_alive'])}", flush=True)
+        if not rel <= 1e-5:
+            fail(f"dist_stage1 iteration {i}: loss {b['total_loss']} against {a['total_loss']}")
+    mutations = [m for _, m in single["rows"] if "cloned" in m]
+    if not mutations or not any(m["cloned"] for m in mutations):
+        fail("dist_stage1: no clone happened")
+    for i, mask in single["alive"].items():
+        for r in results:
+            d = np.nonzero(r["alive"][i] != mask)[0]
+            if len(d):
+                fail(f"dist_stage1: alive masks differ after mutation {i} at {len(d)} slots"
+                     f" (first {d[:10].tolist()})")
+        if not mask.any():
+            fail(f"dist_stage1: no Gaussian alive after mutation {i}")
+    same = all(np.array_equal(r["cloud"][k], results[0]["cloud"][k]) for r in results
+               for k in results[0]["cloud"])
+    gate = {}
+    for k in ("means", "opacity_logits"):
+        a, b = single["cloud"][k], results[0]["cloud"][k]
+        gate[k] = float((np.abs(b - a) / (1e-6 + 1e-4 * np.abs(a))).max())
+    print(f"  dist_stage1: losses within {worst:.2e} relative; alive masks identical after"
+          f" mutations {sorted(single['alive'])}; max |d| / (1e-6 + 1e-4 |x|) {gate} (gate 1);"
+          f" both ranks' clouds bitwise equal {same}", flush=True)
+    print(f"  dist_stage1: wall s of the whole fit ({DIST_S1_ITERATIONS} iterations, set-up"
+          f" included) single {single['seconds']:.3f}, 2 strips sharing the card"
+          f" {results[0]['seconds']:.3f}; {card}", flush=True)
+    if not all(v <= 1.0 for v in gate.values()):
+        fail(f"dist_stage1: parameters outside rtol 1e-4, atol 1e-6: {gate}")
+    if not same:
+        fail("dist_stage1: the ranks' clouds differ")
+    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
+    for i, r in enumerate(results):
+        if any(r["counts"][k] != 2 * DIST_S1_ITERATIONS for k in expected):
+            fail(f"dist_stage1: rank {i} launched {r['counts']}")
+    total = rank_totals(results)
+    check_only(total, expected, "dist_stage1")
+    return total
+
+
+def train_batch_path(dev, cloud):
+    """train_batch (module docstring): the launches summed over the ranks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import splatpu_torch.cli.train as cli_train
+    from splatpu_torch.data.dataset import save_synthetic_sequence
+    from splatpu_torch.dist import ranks
+    from splatpu_torch.io.checkpoint import load_checkpoint, save_cloud
+    from splatpu_torch.io.images import have_pil
+    from splatpu_torch.tools.train_scene import render_targets
+
+    names = ("seq_a", "seq_b")
+    with tempfile.TemporaryDirectory(prefix="splatpu_batch_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        suffix = ".jpg" if have_pil() else ".png"
+        pc = torch.cat([cloud.means, cloud.colors, cloud.segmentation_masks[:, :1]], 1)
+        for name, start in zip(names, (0, 5)):
+            frames = render_targets(cloud, CLI_FRAMES, *SERVE_SIZE, impl="cuda", device=dev,
+                                    start=start)
+            images = np.stack([[v.image for v in per_t] for per_t in frames])
+            save_synthetic_sequence(
+                tmp / name, images, np.zeros(images.shape[:2] + images.shape[3:], np.uint8),
+                np.stack([[v.K for v in per_t] for per_t in frames]),
+                np.stack([[v.w2c for v in per_t] for per_t in frames]), pc.cpu().numpy(),
+                image_suffix=suffix)
+            save_cloud(tmp / name / "densified_initial_gaussian_cloud_parameters.npz", cloud)
+            del frames, images
+        print(f"  two sequences (frames 0..{CLI_FRAMES - 1} and 5..{4 + CLI_FRAMES} of the"
+              f" config-3 motion), 27 cameras at {SERVE_SIZE[0]}x{SERVE_SIZE[1]} ({suffix[1:]});"
+              f" written in {time.perf_counter() - t0:.2f} s", flush=True)
+        common = ["2", "1", "0.001", "128", "3", "-t", str(CLI_FRAMES - 1), "--device", DEVICE,
+                  "--renderer", DIST_RENDERER, "--checkpoint-every", "1"]
+        argv = [str(tmp), *common, "--sequences", *names, "-o", str(tmp / "batch"),
+                "--num-processes", "2"]
+        results = launch_ranks(ranks.cli_on_rank, 2, ("splatpu_torch.cli.train_batch", argv),
+                               "train_batch")
+        for p, name in enumerate(names):
+            rec = json.loads((tmp / "batch" / name / "result.json").read_text())
+            t0 = time.perf_counter()
+            cli_train.main([name, str(tmp), *common, "-o", str(tmp / "alone"),
+                            "--checkpoint-path", str(tmp / f"{name}.msgpack")])
+            alone_s = time.perf_counter() - t0
+            a = load_checkpoint(tmp / "batch" / name / "stage2_ckpt.msgpack")
+            b = load_checkpoint(tmp / f"{name}.msgpack")
+            la, lb = flat_leaves(a["net_params"]), flat_leaves(b["net_params"])
+            same = la.keys() == lb.keys() and all(np.array_equal(la[k], lb[k]) for k in la)
+            print(f"  {name}: trained by process {rec['process']} of {rec['process_count']} in"
+                  f" {rec['wall_seconds']:.2f} s, last loss {rec['last_step']['total']:.6f};"
+                  f" an independent cli.train run ({alone_s:.2f} s with its orbit render):"
+                  f" networks bitwise equal {same}", flush=True)
+            if rec["process"] != p or not same:
+                fail(f"train_batch: {name} (process {rec['process']}) differs from cli.train's")
+    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
+    n_steps = 2 * (CLI_FRAMES - 1)
+    for i, r in enumerate(results):
+        if any(r["counts"][k] != n_steps for k in expected):
+            fail(f"train_batch: rank {i} launched {r['counts']}, expected {n_steps} steps")
+    total = rank_totals(results)
+    check_only(total, expected, "train_batch")
+    return total
+
+
+def flat_leaves(tree, prefix="") -> dict:
+    """A checkpoint tree's arrays by path."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
 
 
 def main() -> int:
@@ -2066,7 +2470,26 @@ def main() -> int:
 
     with phase("cli_densify", 300):
         trained["cli_densify"] = (cli_densify_path(dev, s1_pc, s1_views), None)
+
+    # The distributed modes: ranks started with dist.launch share the card
+    # over gloo; each phase holds them against the single-process run.
+    with phase("dist_render", 300):
+        trained["dist_render"] = (dist_render_path(dev, cloud), None)
+
+    with phase("dist_train", 300):
+        trained["dist_train"] = (dist_train_path(dev, cloud, base_cfg, card, "dist_train", 2, 1,
+                                                 DIST_TIMESTEPS), None)
+
+    with phase("dist_2d", 300):
+        trained["dist_2d"] = (dist_train_path(dev, cloud, base_cfg, card, "dist_2d", 2, 2,
+                                              DIST_TIMESTEPS), None)
+
+    with phase("dist_stage1", 300):
+        trained["dist_stage1"] = (dist_stage1_path(dev, s1_pc, s1_views, s1_radius, card), None)
         del s1_views
+
+    with phase("train_batch", 300):
+        trained["train_batch"] = (train_batch_path(dev, cloud), None)
 
     for k, v in ptxas_summary(_build.build_log).items():
         print(f"  ptxas {k}: {v}", flush=True)

@@ -5,8 +5,8 @@ observable behaviour module by module (same module names where that helps a
 reader find the counterpart) and replaces each Pallas TPU kernel with a
 kernel written by hand for Hopper (``csrc/``, built by ``_build.py``).
 
-Ported so far, the serving path, stage 1 (fit and densify), the
-single-device stage-2 trainer and both stages' command lines:
+Ported so far, the serving path, stage 1 (fit and densify), the stage-2
+trainer, both stages' command lines and the distributed modes:
 
 - ``core``      cloud / camera / render-arg types (with the
                 ``means2d_offset`` screen-gradient collector), quaternions,
@@ -35,7 +35,12 @@ single-device stage-2 trainer and both stages' command lines:
                 the deformation bundle, images (PIL or a PNG codec), frames
                 and video.
 - ``obs``       the metrics logger, PSNR, timing and tracing helpers.
-- ``cli``       ``densify``, ``train`` and ``render``.
+- ``dist``      the distributed modes on ``torch.distributed``: the
+                (cameras, tiles) rank grid, camera-sharded and 2D stage-2
+                losses and step, tile-strip renders for stage 1, process
+                topologies and multi-sequence batches, and a launcher of
+                ranks on one host (gloo when they share a card).
+- ``cli``       ``densify``, ``train``, ``render`` and ``train_batch``.
 - ``tools``     profilers of serving and training, the config-3 training
                 scene and the config-2 stage-1 scene, comparisons with
                 another commit's kernels.

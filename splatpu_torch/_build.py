@@ -6,9 +6,15 @@ plain C interface, loaded with ``ctypes``.  No PyTorch headers are included,
 so a build takes seconds; compiling a source that includes them through
 PyTorch's extension tooling takes minutes.
 
-At first use the build directory ``splatpu_torch/_build/`` is deleted and
-made anew, so no stale library or lock from an earlier, interrupted run can
-be picked up.  Nothing is built when this module is imported.
+At first use the build directory ``splatpu_torch/_build/`` (or
+``$SPLATPU_TORCH_BUILD_DIR``) is deleted and made anew, so no stale library
+or lock from an earlier, interrupted run can be picked up.  Under a
+``torch.distributed`` process group of several ranks, rank 0 of each host
+(``LOCAL_RANK`` 0) removes the kernel library's own files and builds it
+while the other ranks wait at a barrier; then every rank loads the same
+library and no rank deletes the directory, so the native kNN library in
+``_build/knn/`` survives every rank.  Nothing is built when this module is
+imported.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_build"
+BUILD_DIR = Path(os.environ.get("SPLATPU_TORCH_BUILD_DIR", PACKAGE_DIR / "_build"))
 LIBRARY = BUILD_DIR / "libsplatpu_kernels.so"
 NVCC_TIMEOUT_S = 180
 
@@ -92,29 +98,66 @@ def _run_all(cmds: list[list[str]]) -> str:
     return "".join(outs)
 
 
-def build_library(srcs: list[Path], library: Path) -> tuple[ctypes.CDLL, str]:
-    """Compile ``srcs`` and link them into ``library``, in its directory,
-    which is deleted and made anew; return the loaded library and nvcc's
-    log."""
+def build_library(srcs: list[Path], library: Path, fresh: bool = True) -> tuple[ctypes.CDLL, str]:
+    """Compile ``srcs`` and link them into ``library``, in its directory;
+    return the loaded library and nvcc's log.  ``fresh``: the directory is
+    deleted and made anew; otherwise only the files this build writes are
+    removed first."""
     build_dir = library.parent
-    shutil.rmtree(build_dir, ignore_errors=True)
-    build_dir.mkdir(parents=True)
+    objects = [build_dir / f"{src.stem}.o" for src in srcs]
+    if fresh:
+        shutil.rmtree(build_dir, ignore_errors=True)
+    for f in ([] if fresh else [*objects, library]):
+        f.unlink(missing_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     log = _run_all([compile_command(src, build_dir) for src in srcs])
-    log += _run_all([link_command([build_dir / f"{src.stem}.o" for src in srcs], library)])
+    log += _run_all([link_command(objects, library)])
     return ctypes.CDLL(str(library)), log
 
 
+def _ranks() -> tuple[bool, bool]:
+    """(several ranks in a process group, this rank builds for its host)."""
+    try:
+        import torch.distributed as dist
+    except ImportError:
+        return False, True
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return False, True
+    return True, int(os.environ.get("LOCAL_RANK", dist.get_rank())) == 0
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    global _lib
+    lib.splatpu_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.splatpu_cuda_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built from the sources on first call."""
-    global _lib, build_log, build_seconds
+    """The kernel library, built from the sources on first call (under a
+    process group: every rank must call it, as a barrier does)."""
+    global build_log, build_seconds
     if _lib is None:
         t0 = time.perf_counter()
-        lib, build_log = build_library(sources(), LIBRARY)
-        lib.splatpu_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.splatpu_cuda_error_string.restype = ctypes.c_char_p
+        ranked, builds = _ranks()
+        if builds:
+            lib, build_log = build_library(sources(), LIBRARY, fresh=not ranked)
+        if ranked:
+            import torch.distributed as dist
+
+            dist.barrier()
+        if not builds:
+            lib = ctypes.CDLL(str(LIBRARY))
         build_seconds = time.perf_counter() - t0
-        _lib = lib
+        _bind(lib)
     return _lib
+
+
+def adopt_library(path) -> ctypes.CDLL:
+    """Load the library that the parent process of this run built at
+    ``path`` (``dist.launch`` hands it to its ranks), building nothing."""
+    return _lib if _lib is not None else _bind(ctypes.CDLL(str(path)))
 
 
 def require_cuda(name: str, tensors) -> None:

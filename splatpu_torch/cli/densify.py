@@ -12,9 +12,11 @@ The JAX package's positionals, flags and defaults, plus ``--device``
 Writes ``<sequence>/densify_metrics.jsonl`` and the compacted cloud
 (``--output``, default
 ``<sequence>/densified_initial_gaussian_cloud_parameters.npz``), which
-``cli.train`` of either package reads.  ``--mesh-tiles`` other than 0 is
-refused: the tile-sharded render is not ported.  The JAX package's
-compilation cache (``obs/cache.py``) has no counterpart here.
+``cli.train`` of either package reads.  ``--mesh-tiles N`` renders each
+view as N row strips, one per rank: run as a rank of a process group of N
+ranks, or alone, and it starts the ranks on this host itself
+(``dist.launch``); rank 0 writes the metrics and the cloud.  The JAX
+package's compilation cache (``obs/cache.py``) has no counterpart here.
 
 ``add_binning_flags`` / ``binning_from_args`` are the binning-budget flags
 that ``cli/train.py`` shares.
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 from pathlib import Path
 
 from splatpu_torch.data.dataset import (
@@ -32,6 +35,8 @@ from splatpu_torch.data.dataset import (
     load_metadata,
     load_timestep_views,
 )
+from splatpu_torch.dist.launch import main_on_ranks
+from splatpu_torch.dist.mesh import rank_device, world
 from splatpu_torch.growth.densify import DensifyConfig
 from splatpu_torch.io.checkpoint import save_cloud
 from splatpu_torch.obs.metrics import MetricsLogger
@@ -75,7 +80,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh-tiles", type=int, default=0,
-                   help="image strips per render over a device mesh (not ported: must be 0)")
+                   help="image strips per render, one per rank (0 = one process)")
     p.add_argument("--views-per-step", type=int, default=1,
                    help="views rendered per iteration in one batched step (densification"
                         " statistics advance as that many reference iterations)")
@@ -92,16 +97,22 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = parser().parse_args(argv)
-    if args.mesh_tiles != 0:
-        raise NotImplementedError(
-            "--mesh-tiles: the tile-sharded stage-1 render is not ported (ROADMAP A.5)")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    p = parser()
+    args = p.parse_args(argv)
+    if args.mesh_tiles > 0 and args.views_per_step > 1:
+        p.error("--views-per-step above 1 cannot be combined with --mesh-tiles (batch the views"
+                " or shard one view's tiles)")
+    if args.mesh_tiles > 1 and world()[1] == 1:
+        return main_on_ranks(main, argv, args.mesh_tiles, args.device)
+    first = world()[0] == 0
     metadata = load_metadata(args.sequence_path)
     point_cloud = load_initial_point_cloud(args.sequence_path)
     scene_radius = get_scene_radius(metadata)
     views = load_timestep_views(metadata, 0, args.sequence_path)
-    logger = MetricsLogger(jsonl_path=args.sequence_path / "densify_metrics.jsonl",
-                           use_wandb=args.wandb, wandb_project="densify-gaussian-cloud")
+    logger = (MetricsLogger(jsonl_path=args.sequence_path / "densify_metrics.jsonl",
+                            use_wandb=args.wandb, wandb_project="densify-gaussian-cloud")
+              if first else None)
     densify_cfg = DensifyConfig()
     if args.grad_threshold is not None:
         densify_cfg = dataclasses.replace(densify_cfg, grad_threshold=args.grad_threshold)
@@ -118,9 +129,11 @@ def main(argv=None):
         checkpoint_every=args.checkpoint_every,
         checkpoint_path=str(args.checkpoint_path) if args.checkpoint_path else None,
     )
-    cloud, _ = fit(point_cloud, views, scene_radius, config, logger=logger, progress=True,
+    cloud, _ = fit(point_cloud, views, scene_radius, config, logger=logger, progress=first,
                    resume_from=str(args.resume_from) if args.resume_from else None,
-                   device=args.device)
+                   device=rank_device(args.device))
+    if not first:
+        return
     out = args.output or (args.sequence_path / "densified_initial_gaussian_cloud_parameters.npz")
     save_cloud(out, cloud)
     logger.close()

@@ -13,18 +13,25 @@ Writes under ``<output>/<sequence-name>/``: ``train_metrics.jsonl``,
 ``visualizations/`` (frames, videos), ``config.json`` and the bundle
 ``deformation_network/``, whose ``config.json`` also records the head
 settings (the JAX package's records only the sizes and timestep count).
-``--mesh-cameras`` other than 0 is refused by the trainer and
-``--mesh-tiles`` other than 1 here: the distributed step is not ported.
+
+``--mesh-cameras C`` (with ``--mesh-tiles T``) trains on a C x T grid of
+ranks: run as a rank of a process group of C x T ranks, or alone, and it
+starts the ranks on this host itself (``dist.launch``; gloo when they share
+a card).  Rank 0 writes every artifact.  ``--mesh-tiles`` above 1 without
+``--mesh-cameras`` is refused (the JAX package ignores it).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 from pathlib import Path
 
 from splatpu_torch.cli.densify import add_binning_flags, binning_from_args
 from splatpu_torch.data.dataset import load_metadata, load_timestep_views
+from splatpu_torch.dist.launch import main_on_ranks
+from splatpu_torch.dist.mesh import rank_device, world
 from splatpu_torch.io.checkpoint import HEAD_KNOBS, export_deformation_bundle, load_cloud
 from splatpu_torch.obs.metrics import MetricsLogger
 from splatpu_torch.train.inference import run_inference
@@ -57,9 +64,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", default="auto", choices=["auto", "float32", "bfloat16"],
                    help="deformation-network matmul dtype; auto = float32 off a TPU")
     p.add_argument("--mesh-cameras", type=int, default=0,
-                   help="views sharded over this many devices (not ported: must be 0)")
+                   help="views sharded over this many camera ranks (0: one process)")
     p.add_argument("--mesh-tiles", type=int, default=1,
-                   help="with --mesh-cameras: image strips per view (not ported)")
+                   help="with --mesh-cameras: image strips per view, one per tile rank")
     p.add_argument("--delta-scale", type=float, default=0.01,
                    help="deformation head output scale (reference: 0.01)")
     p.add_argument("--no-double-residual", action="store_true",
@@ -82,17 +89,23 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = parser().parse_args(argv)
-    if args.mesh_tiles != 1:
-        raise NotImplementedError(
-            "--mesh-tiles: the distributed stage-2 step is not ported (ROADMAP A.5)")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    p = parser()
+    args = p.parse_args(argv)
+    if args.mesh_tiles > 1 and args.mesh_cameras <= 0:
+        p.error("--mesh-tiles above 1 needs --mesh-cameras")
+    ranks = args.mesh_cameras * args.mesh_tiles if args.mesh_cameras > 0 else 1
+    if ranks > 1 and world()[1] == 1:
+        return main_on_ranks(main, argv, ranks, args.device)
+    first = world()[0] == 0
+    device = rank_device(args.device)
     sequence_path = args.data_directory_path / args.sequence_name
     metadata = load_metadata(sequence_path)
     t_count = metadata.timestep_count
     if args.timestep_count_limit is not None:
         t_count = min(t_count, args.timestep_count_limit)
     cloud = load_cloud(sequence_path / "densified_initial_gaussian_cloud_parameters.npz",
-                       device=args.device)
+                       device=device)
     views_by_timestep = [
         load_timestep_views(metadata, t, sequence_path) for t in range(1, t_count + 1)
     ]
@@ -111,6 +124,7 @@ def main(argv=None):
         restage_every=args.restage_every,
         compute_dtype=args.compute_dtype,
         mesh_cameras=args.mesh_cameras,
+        mesh_tiles=args.mesh_tiles,
         delta_scale=args.delta_scale,
         double_residual=not args.no_double_residual,
         zero_init_head=args.zero_init_head,
@@ -121,14 +135,18 @@ def main(argv=None):
         checkpoint_path=str(args.checkpoint_path) if args.checkpoint_path else None,
     )
     run_dir = args.output_directory_path / args.sequence_name
-    run_dir.mkdir(parents=True, exist_ok=True)
-    logger = MetricsLogger(jsonl_path=run_dir / "train_metrics.jsonl", use_wandb=args.wandb,
-                           wandb_project="animating-gaussian-splats")
+    logger = None
+    if first:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        logger = MetricsLogger(jsonl_path=run_dir / "train_metrics.jsonl", use_wandb=args.wandb,
+                               wandb_project="animating-gaussian-splats")
     net, dense_cloud, encoded_initial, _ = train(
-        cloud, views_by_timestep, config, logger=logger, device=args.device, progress=True,
+        cloud, views_by_timestep, config, logger=logger, device=device, progress=first,
         resume_from=str(args.resume_from) if args.resume_from else None,
     )
-    run_inference(net, dense_cloud, encoded_initial, config, device=args.device,
+    if not first:
+        return
+    run_inference(net, dense_cloud, encoded_initial, config, device=device,
                   output_directory=run_dir / "visualizations",
                   views_by_timestep=views_by_timestep, fps=args.fps, logger=logger)
     with (run_dir / "config.json").open("w") as f:

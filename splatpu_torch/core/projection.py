@@ -28,9 +28,14 @@ ALPHA_MIN = 1.0 / 255.0
 TRANSMITTANCE_EPS = 1e-4
 
 
+def projection_size(camera: Camera) -> tuple[int, int]:
+    """The size of the image ``camera.K`` describes (the FOV size)."""
+    return camera.fov_width or camera.width, camera.fov_height or camera.height
+
+
 def opengl_projection_matrix(camera: Camera) -> torch.Tensor:
     """The principal-point-aware perspective matrix of one view (P @ x)."""
-    w, h = camera.width, camera.height
+    w, h = projection_size(camera)
     fx, fy, cx, cy = camera.fx, camera.fy, camera.cx, camera.cy
     n, f = camera.near, camera.far
     P = torch.zeros((4, 4), dtype=torch.float32, device=camera.K.device)
@@ -60,12 +65,11 @@ class Splats2D:
 
 
 def offset_pixel_scale(camera: Camera) -> torch.Tensor:
-    """Pixel scale of ``RenderArgs.means2d_offset``: half the image's width
-    and height, the CUDA rasterizer's d(pixel)/d(NDC) (the JAX package's
-    strip-render FOV override waits for ROADMAP A.5)."""
-    return torch.tensor(
-        [camera.width * 0.5, camera.height * 0.5], dtype=torch.float32, device=camera.K.device
-    )
+    """Pixel scale of ``RenderArgs.means2d_offset``: half the full image's
+    width and height (the FOV size), the CUDA rasterizer's d(pixel)/d(NDC),
+    so that a strip collects screen gradients in the full render's units."""
+    w, h = projection_size(camera)
+    return torch.tensor([w * 0.5, h * 0.5], dtype=torch.float32, device=camera.K.device)
 
 
 def compute_cov3d_columns(scales: torch.Tensor, rotations: torch.Tensor):
@@ -106,13 +110,18 @@ def preprocess(args: RenderArgs, camera: Camera) -> Splats2D:
     p_hom = _matvec_rows(P[:, :3], means, P[:, 3])
     p_w = 1.0 / (p_hom[:, 3] + 1e-7)
     ndc = p_hom[:, :2] * p_w[:, None]
-    wh = torch.tensor([camera.width, camera.height], dtype=torch.float32, device=means.device)
+    wh = torch.tensor(projection_size(camera), dtype=torch.float32, device=means.device)
     mean2d = ((ndc + 1.0) * wh - 1.0) * 0.5
     if args.means2d_offset is not None:
         # The screen-gradient collector: its pixel scale is half the image.
         if args.means2d_offset.dim() != 2:
             raise ValueError("preprocess takes one view's (N, 2) offset; use args.for_view(i)")
         mean2d = mean2d + args.means2d_offset * offset_pixel_scale(camera)
+    if camera.row_offset:
+        # A strip: the whole image's positions less its first row, exactly
+        # (both are multiples of the position's ulp), so that every pixel
+        # offset the composite forms is the whole render's.
+        mean2d = mean2d - torch.tensor([0.0, float(camera.row_offset)], device=means.device)
 
     cov3d = compute_cov3d_columns(args.scales, args.rotations)
     limx = 1.3 * camera.tan_fovx

@@ -98,6 +98,15 @@ class Camera:
     ``w2c`` is (4, 4) and ``K`` is (3, 3) for one view, or (V, 4, 4) and
     (V, 3, 3) for V views of the same size (the port's batched view
     dimension; the JAX package vmaps over stacked cameras instead).
+
+    ``fov_width`` / ``fov_height`` (default: the image's size) are the
+    size of the image that ``K`` describes, whose field of view the
+    projection, the EWA frustum clamp and the ``means2d_offset`` pixel
+    scale read; ``row_offset`` is the first of its rows that this camera
+    renders.  A strip of a larger image (``dist/tile_sharding.py``) keeps
+    the whole image's ``K`` and size and renders ``height`` rows from
+    ``row_offset``: its pixel positions are the whole image's less
+    ``row_offset``, exactly, so its pixels are the whole render's rows.
     """
 
     w2c: torch.Tensor
@@ -106,6 +115,9 @@ class Camera:
     height: int
     near: float = 1.0
     far: float = 100.0
+    fov_width: Optional[int] = None
+    fov_height: Optional[int] = None
+    row_offset: int = 0
 
     @property
     def batched(self) -> bool:
@@ -143,11 +155,11 @@ class Camera:
     # multiply, which rounds differently from the reference's division.
     @property
     def tan_fovx(self):
-        return torch.full_like(self.fx, self.width) / (2.0 * self.fx)
+        return torch.full_like(self.fx, self.fov_width or self.width) / (2.0 * self.fx)
 
     @property
     def tan_fovy(self):
-        return torch.full_like(self.fy, self.height) / (2.0 * self.fy)
+        return torch.full_like(self.fy, self.fov_height or self.height) / (2.0 * self.fy)
 
 
 def stack_cameras(cameras: list[Camera]) -> Camera:
@@ -155,7 +167,8 @@ def stack_cameras(cameras: list[Camera]) -> Camera:
     if not cameras:
         raise ValueError("empty camera list")
     c0 = cameras[0]
-    static = lambda c: (c.width, c.height, c.near, c.far)  # noqa: E731
+    static = lambda c: (c.width, c.height, c.near, c.far, c.fov_width, c.fov_height,  # noqa: E731
+                        c.row_offset)
     for c in cameras[1:]:
         if static(c) != static(c0):
             raise ValueError("cannot stack cameras with differing static fields")

@@ -6,12 +6,14 @@
   reported;
 - ``trace``: ``torch.profiler`` over a block, its Chrome trace written to a
   directory;
-- ``debug_nan_mode``: autograd anomaly detection over a block.
+- ``debug_nan_mode``: autograd anomaly detection over a block;
+- ``launch_counts`` / ``zero_counts``: every kernel's launch counter.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 import time
 from pathlib import Path
 from typing import Callable
@@ -19,6 +21,26 @@ from typing import Callable
 import torch
 
 from splatpu_torch.tools.measure import cuda_ms
+
+# Every kernel's launch counter, by kernel: (module, attribute).
+COUNTERS = {
+    "composite_fwd": ("splatpu_torch.render.composite", "LAUNCHES"),
+    "composite_bwd": ("splatpu_torch.render.composite", "BWD_LAUNCHES"),
+    "route_pairs": ("splatpu_torch.render.route", "LAUNCHES"),
+    "composite_manual_fwd": ("splatpu_torch.render.composite", "MANUAL_LAUNCHES"),
+    "composite_manual_bwd": ("splatpu_torch.render.composite", "MANUAL_BWD_LAUNCHES"),
+    "padded_fwd": ("splatpu_torch.render.padded", "LAUNCHES"),
+    "padded_bwd": ("splatpu_torch.render.padded", "BWD_LAUNCHES"),
+}
+
+
+def launch_counts() -> dict:
+    return {k: getattr(importlib.import_module(m), a) for k, (m, a) in COUNTERS.items()}
+
+
+def zero_counts() -> None:
+    for m, a in COUNTERS.values():
+        setattr(importlib.import_module(m), a, 0)
 
 
 def force_completion(device=None) -> None:

@@ -17,7 +17,11 @@ batched) camera in one call.  ``impl``:
 - ``"oracle"``: the naive per-pixel renderer (``render/oracle.py``), the
   port's ground truth for small scenes;
 - ``"auto"``:  ``"cuda"`` for CUDA tensors, ``"plain"`` for CPU tensors, as
-  the JAX package picks its Pallas kernels on a TPU.
+  the JAX package picks its Pallas kernels on a TPU;
+- ``"pallas"`` / ``"pallas_padded"``: the JAX package's names of the exact
+  and padded paths, taken as ``"cuda"`` / ``"cuda_padded"`` for CUDA
+  tensors and as their plain versions for CPU tensors (the counterpart of
+  JAX's interpret mode).
 
 With ``config=None`` the budget is ``default_config``'s, at 16 px tiles for
 the padded impls and 32 px otherwise, as in the JAX package.  Every impl is
@@ -52,11 +56,14 @@ from splatpu_torch.render.types import RenderOutput
 
 IMPLS = ("cuda", "plain", "cuda_padded", "plain_padded", "stream", "oracle")
 PADDED_IMPLS = {"cuda_padded": "cuda", "plain_padded": "plain"}
+# The JAX package's names: (on a card, on the CPU).
+JAX_IMPLS = {"auto": ("cuda", "plain"), "pallas": ("cuda", "plain"),
+             "pallas_padded": ("cuda_padded", "plain_padded")}
 
 
 def resolve_impl(impl: str, device: torch.device) -> str:
-    if impl == "auto":
-        return "cuda" if device.type == "cuda" else "plain"
+    if impl in JAX_IMPLS:
+        return JAX_IMPLS[impl][0 if device.type == "cuda" else 1]
     if impl not in IMPLS:
         raise ValueError(f"unknown renderer impl: {impl!r}")
     return impl

@@ -88,6 +88,15 @@ def tile_grid(width: int, height: int, tile: int) -> tuple[int, int]:
     return -(-width // tile), -(-height // tile)
 
 
+def depth_key_tiles(camera: Camera, tile: int) -> int:
+    """The tile count whose key field sizes the depth quantization: the
+    whole image's (its FOV size), so that a strip of it
+    (``dist/tile_sharding.py``) orders equal-looking depths as the whole
+    render does; the camera's own for any other camera."""
+    tx, ty = tile_grid(camera.fov_width or camera.width, camera.fov_height or camera.height, tile)
+    return tx * ty
+
+
 def _depth_bits_for(num_tiles: int) -> int:
     """Depth bits left in a u32 key after the tile field (which must hold
     num_tiles inclusive, the invalid sentinel); capped at 24."""
@@ -138,7 +147,8 @@ def build_pair_stream(args: RenderArgs, camera: Camera, config: BinningConfig) -
     autograd history."""
     sp = preprocess(args, camera)
     with torch.no_grad():
-        ints = _pair_stream_integers(sp, camera.width, camera.height, config)
+        ints = _pair_stream_integers(sp, camera.width, camera.height, config,
+                                     depth_key_tiles(camera, config.tile))
     g_opacity = args.opacities[:, 0]
     return PairStream(
         **ints, g_colors=args.colors,
@@ -152,10 +162,11 @@ def pair_streams(args: RenderArgs, camera: Camera, config: BinningConfig) -> lis
             for i in range(camera.num_views)]
 
 
-def _pair_stream_integers(sp: Splats2D, width: int, height: int, config: BinningConfig) -> dict:
+def _pair_stream_integers(sp: Splats2D, width: int, height: int, config: BinningConfig,
+                          key_tiles: int | None = None) -> dict:
     tiles_x, tiles_y = tile_grid(width, height, config.tile)
     num_tiles = tiles_x * tiles_y
-    depth_bits = _depth_bits_for(num_tiles)
+    depth_bits = _depth_bits_for(key_tiles or num_tiles)
     max_span, mp, chunk = config.max_span, config.max_pairs, config.chunk_pairs
     dev = sp.depth.device
     i64 = torch.int64

@@ -40,6 +40,7 @@ from splatpu_torch.render.binning import (
     SENTINEL,
     BinningConfig,
     _depth_bits_for,
+    depth_key_tiles,
     quantize_depth,
     tile_grid,
 )
@@ -79,19 +80,22 @@ class ExactStream:
 
 def bin_splats(
     splats: Splats2D, opacities: torch.Tensor, width: int, height: int,
-    config: BinningConfig,
+    config: BinningConfig, key_tiles: int | None = None,
 ) -> ExactStream:
     """Exact binning of one view's projected splats; ``opacities`` is (N,).
+    ``key_tiles`` (default: the image's tile count) sizes the sort key's
+    tile field and so the depth quantization (``binning.depth_key_tiles``).
 
     The integers come from detached values; only ``g_opacity`` (and the
     splats, passed through) carry autograd history."""
     with torch.no_grad():
-        stream = _bin(splats, opacities.detach(), width, height, config)
+        stream = _bin(splats, opacities.detach(), width, height, config, key_tiles)
     g_opacity = torch.where(splats.visible, opacities, torch.zeros_like(opacities))
     return dataclasses.replace(stream, g_opacity=g_opacity, splats=splats)
 
 
-def _bin(splats: Splats2D, opacities, width, height, config: BinningConfig) -> ExactStream:
+def _bin(splats: Splats2D, opacities, width, height, config: BinningConfig,
+         key_tiles: int | None = None) -> ExactStream:
     splats = Splats2D(
         mean2d=splats.mean2d.detach(), depth=splats.depth.detach(),
         conic=splats.conic.detach(), radius=splats.radius.detach(), visible=splats.visible,
@@ -99,7 +103,7 @@ def _bin(splats: Splats2D, opacities, width, height, config: BinningConfig) -> E
     tile = config.tile
     tiles_x, tiles_y = tile_grid(width, height, tile)
     num_tiles = tiles_x * tiles_y
-    depth_bits = _depth_bits_for(num_tiles)
+    depth_bits = _depth_bits_for(key_tiles or num_tiles)
     max_span = config.max_span
     mp = config.max_pairs
     lane_bits = max(1, (max_span - 1).bit_length())
@@ -249,7 +253,8 @@ def _bin(splats: Splats2D, opacities, width, height, config: BinningConfig) -> E
 def build_exact_stream(args: RenderArgs, camera: Camera, config: BinningConfig) -> ExactStream:
     """Preprocess one view and bin it."""
     sp = preprocess(args, camera)
-    return bin_splats(sp, args.opacities[:, 0], camera.width, camera.height, config)
+    return bin_splats(sp, args.opacities[:, 0], camera.width, camera.height, config,
+                      depth_key_tiles(camera, config.tile))
 
 
 def bin_views(args: RenderArgs, camera: Camera, config: BinningConfig) -> list[ExactStream]:

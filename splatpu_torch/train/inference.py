@@ -48,8 +48,14 @@ from splatpu_torch.core.ssim import ssim
 from splatpu_torch.core.types import Camera, GaussianCloud, activate_cloud, stack_cameras
 from splatpu_torch.dynamics.network import DeformationNet
 from splatpu_torch.io.video import write_frame, write_video
-from splatpu_torch.render.api import demand_binning, measure_binning_demand, render
-from splatpu_torch.render.binning import grow_for_span_overflow
+from splatpu_torch.render.api import (
+    PADDED_IMPLS,
+    demand_binning,
+    measure_binning_demand,
+    render,
+    resolve_impl,
+)
+from splatpu_torch.render.binning import DEFAULT_TILE, grow_for_span_overflow
 from splatpu_torch.train.losses import L1_WEIGHT, SSIM_WEIGHT
 from splatpu_torch.train.stage2 import Stage2Config, rollout_step
 
@@ -178,13 +184,16 @@ def run_inference(
     binning = config.binning
     demand = (None, None)
     if binning is None:
+        # At the padded path's fixed 16 px tile there, as ``render`` sizes
+        # its default; the run's budget flags (a --tile, say) apply too.
+        tile = 16 if resolve_impl(impl, device) in PADDED_IMPLS else DEFAULT_TILE
         margs = activate_cloud(initial_cloud)
-        demand = measure_binning_demand(margs, cams)
+        demand = measure_binning_demand(margs, cams, tile=tile)
         if views_by_timestep is not None:
             for group_cams, _ in group_by_resolution(views_by_timestep[0], device).values():
-                dp, ds = measure_binning_demand(margs, group_cams)
+                dp, ds = measure_binning_demand(margs, group_cams, tile=tile)
                 demand = (max(demand[0], dp), max(demand[1], ds))
-        binning = demand_binning(*demand)
+        binning = demand_binning(*demand, tile=tile, overrides=config.binning_overrides)
     n_rows = initial_cloud.capacity
     state = {"binning": binning, "growths": 0, "residual_overflow": False,
              "pairs_used": 0, "renders": 0,

@@ -32,7 +32,15 @@ inside (``tools/profile_stage1.py`` reads them).  Overflow flags are read
 on the host every ``overflow_check_every`` iterations only; the budget that overflowed grows (the span before the
 pairs).  Checkpoints hold the JAX package's tree
 (``io.checkpoint.stage1_checkpoint_tree``), so a checkpoint of either
-package resumes in the other.  Not ported: ``mesh_tiles`` (ROADMAP A.5).
+package resumes in the other.
+
+``mesh_tiles > 0`` renders each view as that many row strips, one per rank
+of the process group (``dist/tile_sharding.py``): the strips are gathered
+into the whole image on every rank, the loss is taken there, and the
+cloud's and the collector's gradients are summed over the ranks, so every
+rank reads the same statistics and mutates its cloud identically.  Every
+rank runs ``fit`` with the same arguments; only rank 0 logs and writes
+checkpoints.  One view per step only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -80,7 +88,7 @@ class Stage1Config:
     renderer: str = "auto"
     binning: Optional[BinningConfig] = None
     binning_overrides: Optional[dict] = None  # field overrides over the sized default
-    mesh_tiles: int = 0                       # > 0: tile-sharded renders (not ported)
+    mesh_tiles: int = 0                       # > 0: each render's rows over this many ranks
     views_per_step: int = 1
     grow_budget_on_overflow: bool = True
     overflow_check_every: int = 100
@@ -142,13 +150,21 @@ class Stage1Steps:
     device), the binning and ``i``; ``adam`` is updated in place."""
 
     def __init__(self, config: Stage1Config, scene_radius: float, staged, width: int,
-                 height: int, adam: Stage1Adam):
+                 height: int, adam: Stage1Adam, mesh=None):
         self.config = config
         self.scene_radius = scene_radius
         self.lrs = stage1_learning_rates(scene_radius)
         self.staged = staged
         self.width, self.height = width, height
         self.adam = adam
+        self.dual_strips = None
+        if mesh is not None:
+            from splatpu_torch.dist.tile_sharding import make_tile_sharded_render_dual
+            from splatpu_torch.train.stage2 import camera_template
+
+            self.dual_strips = make_tile_sharded_render_dual(
+                mesh, camera_template(width, height), renderer=config.renderer,
+                binning=config.binning)
 
     def forward_backward(self, cloud: GaussianCloud, pick, binning,
                          param_grads: bool = True) -> StepResult:
@@ -162,9 +178,16 @@ class Stage1Steps:
         c = GaussianCloud(alive=cloud.alive, **params)
         with record_function("render"):
             args = dataclasses.replace(activate_cloud(c), means2d_offset=offsets)
-            cams = Camera(w2c=w2c, K=K, width=self.width, height=self.height)
-            out, seg_out = render_dual(args, c.segmentation_masks, cams,
-                                       impl=self.config.renderer, config=binning)
+            if self.dual_strips is not None:
+                from splatpu_torch.dist.tile_sharding import whole_outputs
+
+                out, seg_out = whole_outputs(
+                    *self.dual_strips(args, c.segmentation_masks, w2c, K, binning=binning),
+                    height=self.height)
+            else:
+                cams = Camera(w2c=w2c, K=K, width=self.width, height=self.height)
+                out, seg_out = render_dual(args, c.segmentation_masks, cams,
+                                           impl=self.config.renderer, config=binning)
         with record_function("loss"):
             img_l = image_losses(out.image, images)
             seg_l = image_losses(seg_out.image, segs)
@@ -264,9 +287,16 @@ def fit(
     checkpoint of either package; the loop continues after its iteration
     with its cloud, Adam state, statistics, key and budget.
     """
+    mesh = None
     if config.mesh_tiles > 0:
-        raise NotImplementedError(
-            "mesh_tiles > 0: the tile-sharded stage-1 render is not ported (ROADMAP A.5)")
+        if config.views_per_step > 1:
+            raise ValueError("views_per_step > 1 cannot be combined with mesh_tiles (batch the"
+                             " views OR shard one view's tiles)")
+        from splatpu_torch.dist.mesh import get_mesh
+
+        mesh = get_mesh(camera_axis=1, tile_axis=config.mesh_tiles)
+        if mesh.rank != 0:
+            logger = None
     device = torch.device(device)
     capacity = int(point_cloud.shape[0] * config.capacity_factor)
     capacity = -(-capacity // 256) * 256
@@ -276,7 +306,8 @@ def fit(
     adam = Stage1Adam(cloud.param_dict())
     stats = init_stats(capacity, device)
     staged = stage_views(views, device)
-    steps = Stage1Steps(config, scene_radius, staged, views[0].width, views[0].height, adam)
+    steps = Stage1Steps(config, scene_radius, staged, views[0].width, views[0].height, adam,
+                        mesh)
 
     rng = np.random.default_rng(config.seed)
     key = np.array([0, config.seed & 0xFFFFFFFF], np.uint32)  # jax.random.PRNGKey(seed)
@@ -355,7 +386,7 @@ def fit(
         if on_iteration is not None and (i + 1) % on_iteration_every == 0:
             on_iteration(i, cloud, metrics)
         if (config.checkpoint_every and config.checkpoint_path
-                and (i + 1) % config.checkpoint_every == 0):
+                and (i + 1) % config.checkpoint_every == 0 and (mesh is None or mesh.rank == 0)):
             save_checkpoint(config.checkpoint_path, stage1_checkpoint_tree(
                 cloud, adam, stats, key, i, binning.max_pairs, binning.max_span, growths))
     if logger is not None:

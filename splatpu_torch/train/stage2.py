@@ -25,8 +25,15 @@ iterations).  ``view_batching="map"`` renders the sampled views one at a
 time and takes the same sums.  Checkpoints (``checkpoint_every``,
 ``checkpoint_path``) hold the network, the Adam state, the sequence
 iteration and the budget in the JAX package's layout, so a checkpoint of
-either package resumes in the other.  Not ported: the ``mesh_*``
-distributed step (ROADMAP A.5).
+either package resumes in the other.
+
+``mesh_cameras > 0`` trains on a (mesh_cameras, mesh_tiles) grid of the
+process group's ranks (``dist/``): the sampled views are padded to a
+multiple of ``mesh_cameras`` (weight 0) and sharded over the camera ranks,
+with ``mesh_tiles > 1`` each view's rows over the tile ranks too; the
+network's gradients are summed over every rank, so every rank holds the
+same network.  Every rank runs ``train`` with the same arguments; only
+rank 0 logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -101,7 +108,9 @@ class Stage2Config:
     resident_cameras: int = 8          # device_rotate: cameras resident at once
     restage_every: int = 10            # device_rotate: sequence iterations per rotation
     view_batching: str = "vmap"        # "vmap": one batched render; "map": one per view
-    mesh_cameras: int = 0              # > 0: the distributed step (not ported)
+    mesh_cameras: int = 0              # > 0: the views sharded over this many camera ranks
+    mesh_tiles: int = 1                # > 1 (with mesh_cameras): also each view's rows
+                                       # over this many tile ranks, in the same step
     steps_per_timestep: int = 1        # Adam steps per visited timestep
     timestep_order: str = "sequential"  # or "shuffled" per sequence iteration
     grow_budget_on_overflow: bool = True
@@ -194,22 +203,87 @@ def snapshot_previous(cloud: GaussianCloud, fg_idx, neighbor_info: NeighborInfo,
     return enc, fg
 
 
-def make_step(config: Stage2Config, state: Stage2Setup, width: int, height: int):
-    """The one stage-2 step: ``step(encoded_previous, previous_fg, timestep,
-    w2c (V, 4, 4), K (V, 3, 3), images (V, 3, H, W) float32 or uint8,
-    binning)`` -> (encoded_previous, previous_fg, metrics).  It updates the
-    network's parameters and the optimizer in place.  ``metrics`` holds
-    device scalars: l1 and ssim (summed over the views), image, rigidity
-    (times V), total, grad_norm, binning_overflow and span_overflow (max
-    over the views, as 0/1), and pairs (the largest view's demanded pairs).
-    Its stages are ``torch.profiler`` ranges: ``deform`` (network and
-    rigidity), ``render``, ``loss``, ``backward``, ``adam`` and ``snapshot``;
+def camera_template(width: int, height: int) -> Camera:
+    """The static fields of the sampled views' cameras; the step fills in
+    their ``w2c`` and ``K``."""
+    return Camera(w2c=torch.empty(0), K=torch.empty(0), width=width, height=height)
+
+
+def view_losses(args, camera: Camera, w2c, K, images, weights, renderer: str, binning,
+                batching: str):
+    """The views' image losses: ``(l1_sum, ssim_sum, overflow, span_overflow,
+    pairs)``.  The sums run over the views, each view's terms times its
+    weight where ``weights`` is given (0 for a padding view); the flags are
+    the max over the views of weight > 0 (as 0/1), ``pairs`` the largest
+    view's demanded pairs.  ``batching`` "vmap" renders every view in one
+    batched render, "map" one view at a time."""
+    groups = ([slice(None)] if batching == "vmap"
+              else [slice(i, i + 1) for i in range(w2c.shape[0])])
+    l1_sum = ssim_sum = 0.0
+    outs = []
+    for g in groups:
+        with record_function("render"):
+            cams = dataclasses.replace(camera, w2c=w2c[g], K=K[g])
+            out = render(args, cams, impl=renderer, config=binning)
+        with record_function("loss"):
+            l1 = (out.image - images[g]).abs().mean(dim=(1, 2, 3))
+            s = 1.0 - ssim(out.image, images[g], size_average=False)
+            if weights is not None:
+                l1, s = l1 * weights[g], s * weights[g]
+            l1_sum = l1_sum + l1.sum()
+            ssim_sum = ssim_sum + s.sum()
+        outs.append(out)
+    overflow = torch.cat([o.overflowed for o in outs])
+    span = torch.cat([o.span_overflowed for o in outs])
+    if weights is not None:
+        overflow, span = overflow & (weights > 0), span & (weights > 0)
+    return (l1_sum, ssim_sum, overflow.any().float(), span.any().float(),
+            torch.cat([o.total_pairs for o in outs]).max())
+
+
+def make_local_image_losses(config: Stage2Config, width: int, height: int):
+    """The single-process image losses: ``image_losses(args, w2c, K, images,
+    weights, binning)`` -> ``view_losses`` of every sampled view."""
+    camera = camera_template(width, height)
+
+    def image_losses(args, w2c, K, images, weights, binning):
+        return view_losses(args, camera, w2c, K, images, weights, config.renderer, binning,
+                           config.view_batching)
+
+    return image_losses
+
+
+def make_step(config: Stage2Config, state: Stage2Setup, width: int, height: int,
+              image_losses=None, grad_sync=None):
+    """The one stage-2 step, shared by the single-process and the sharded
+    trainers: ``step(encoded_previous, previous_fg, timestep, w2c (V, 4, 4),
+    K (V, 3, 3), images (V, 3, H, W) float32 or uint8, binning, weights=None)``
+    -> (encoded_previous, previous_fg, metrics).  It updates the network's
+    parameters and the optimizer in place.
+
+    ``image_losses`` (default ``make_local_image_losses``) is the image-loss
+    term, ``(args, w2c, K, images, weights, binning)`` -> ``(l1_sum,
+    ssim_sum, overflow, span_overflow, pairs)``; ``weights`` (V,) marks real
+    views 1 and padding views 0 (None: every view real).  ``grad_sync``
+    (None on one process; ``dist.train_step.GradSync`` under a mesh) sums
+    the network's gradients over the ranks before the norm and Adam, and
+    says whether this rank adds the rigidity term to the loss it
+    differentiates (one rank does: the term is replicated).
+
+    ``metrics`` holds device scalars: l1 and ssim (summed over the views),
+    image, rigidity (times the real view count), total, grad_norm,
+    binning_overflow and span_overflow (max over the views, as 0/1), and
+    pairs (the largest view's demanded pairs).  Its stages are
+    ``torch.profiler`` ranges: ``deform`` (network and rigidity),
+    ``render``, ``loss``, ``backward``, ``adam`` and ``snapshot``;
     ``splatpu_torch.tools.profile_training`` reads them.
     """
     net, optimizer = state.net, state.optimizer
     params = dict(net.named_parameters())
+    if image_losses is None:
+        image_losses = make_local_image_losses(config, width, height)
 
-    def step(encoded_previous, previous_fg, timestep, w2c, K, images, binning):
+    def step(encoded_previous, previous_fg, timestep, w2c, K, images, binning, weights=None):
         with no_tf32():
             if images.dtype == torch.uint8:
                 images = images.float() / 255.0
@@ -224,29 +298,23 @@ def make_step(config: Stage2Config, state: Stage2Setup, width: int, height: int)
                     state.neighbor_info, previous_fg,
                 )
             args = activate_cloud(updated)
-            # "vmap": one render of every view; "map": one render per view.
-            groups = ([slice(None)] if config.view_batching == "vmap"
-                      else [slice(i, i + 1) for i in range(w2c.shape[0])])
-            l1_sum = ssim_sum = 0.0
-            outs = []
-            for g in groups:
-                with record_function("render"):
-                    cams = Camera(w2c=w2c[g], K=K[g], width=width, height=height)
-                    out = render(args, cams, impl=config.renderer, config=binning)
-                with record_function("loss"):
-                    l1_sum = l1_sum + (out.image - images[g]).abs().mean(dim=(1, 2, 3)).sum()
-                    ssim_sum = ssim_sum + (
-                        1.0 - ssim(out.image, images[g], size_average=False)).sum()
-                outs.append(out)
+            l1_sum, ssim_sum, overflow, span_overflow, pairs = image_losses(
+                args, w2c, K, images, weights, binning)
             with record_function("loss"):
                 image_loss = L1_WEIGHT * l1_sum + SSIM_WEIGHT * ssim_sum
-                # The reference sums one identical rigidity value per view.
-                rigidity = float(w2c.shape[0]) * rig
+                # The reference sums one identical rigidity value per view;
+                # the multiplier is the real view count.
+                rigidity = (float(w2c.shape[0]) if weights is None else weights.sum()) * rig
                 total = image_loss + RIGIDITY_WEIGHT * rigidity
             with record_function("backward"):
-                total.backward()
+                if grad_sync is None or grad_sync.owns_rigidity:
+                    total.backward()
+                else:
+                    image_loss.backward()
             with record_function("adam"):
                 grads = {k: p.grad for k, p in params.items()}
+                if grad_sync is not None:
+                    grads = grad_sync(grads, params)
                 grad_norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
                 optimizer.step(params, grads)
         with record_function("snapshot"):
@@ -260,9 +328,9 @@ def make_step(config: Stage2Config, state: Stage2Setup, width: int, height: int)
             "rigidity": rigidity.detach(),
             "total": total.detach(),
             "grad_norm": grad_norm,
-            "binning_overflow": torch.cat([o.overflowed for o in outs]).any().float(),
-            "span_overflow": torch.cat([o.span_overflowed for o in outs]).any().float(),
-            "pairs": torch.cat([o.total_pairs for o in outs]).max(),
+            "binning_overflow": overflow,
+            "span_overflow": span_overflow,
+            "pairs": pairs,
         }
         return enc_prev, prev_fg, metrics
 
@@ -455,9 +523,15 @@ def train(
         raise ValueError(f"unknown view_batching {config.view_batching!r}")
     if config.timestep_order not in TIMESTEP_ORDERS:
         raise ValueError(f"unknown timestep_order {config.timestep_order!r}")
+    mesh = None
     if config.mesh_cameras > 0:
-        raise NotImplementedError(
-            "mesh_cameras > 0: the distributed stage-2 step is not ported (ROADMAP A.5)")
+        from splatpu_torch.dist.mesh import get_mesh
+
+        mesh = get_mesh(config.mesh_cameras, config.mesh_tiles)
+        if mesh.rank != 0:
+            logger = None
+    elif config.mesh_tiles > 1:
+        raise ValueError("mesh_tiles > 1 shards views over tile ranks: it needs mesh_cameras > 0")
     initial_cloud = compact_cloud(initial_cloud.to(device))
     v0 = views_by_timestep[0][0]
     width, height = v0.width, v0.height
@@ -476,7 +550,13 @@ def train(
             overrides=config.binning_overrides,
         ))
     state = setup(initial_cloud, config, initial_net=initial_net, device=device)
-    step_fn = make_step(config, state, width, height)
+    if mesh is None:
+        step_fn = make_step(config, state, width, height)
+    else:
+        from splatpu_torch.dist.sharding import pad_picks
+        from splatpu_torch.dist.train_step import make_sharded_train_step
+
+        step_fn = make_sharded_train_step(config, state, mesh, width, height)
     staged = [_stage(views, config.view_staging, device) for views in views_by_timestep]
     host = config.view_staging == "host"
     prefetch = HostPrefetch(device) if host else None
@@ -525,6 +605,14 @@ def train(
             order = [int(x) + 1 for x in rng.permutation(t_count)]
         else:
             order = list(range(1, t_count + 1))
+        weights = None
+        if mesh is not None:
+            # The view sample rarely divides the camera ranks: the picks
+            # are padded with index 0 (every staging gathers the same
+            # views), and the padding weighs 0.
+            padded = [pad_picks(torch.from_numpy(p), config.mesh_cameras) for p in picks]
+            picks = [p.numpy() for p, _ in padded]
+            weights = padded[0][1].to(device)
         if host:
             ahead = prefetch.put(staged[order[0] - 1][2], picks[order[0] - 1])
         for visit_i, timestep in enumerate(order):
@@ -554,8 +642,8 @@ def train(
                 # advances only after the last of them.
                 for _rep in range(k_rep):
                     enc_out, fg_out, metrics = step_fn(
-                        enc_prev, prev_fg, float(timestep), w2c, K, images, config.binning
-                    )
+                        enc_prev, prev_fg, float(timestep), w2c, K, images, config.binning,
+                        weights)
                 enc_prev, prev_fg = enc_out, fg_out
                 if logger is not None:
                     if on_card:
@@ -602,11 +690,17 @@ def train(
                         " — renders are dropping splats", stacklevel=2,
                     )
         if (config.checkpoint_every and config.checkpoint_path
-                and (seq_it + 1) % config.checkpoint_every == 0):
+                and (seq_it + 1) % config.checkpoint_every == 0
+                and (mesh is None or mesh.rank == 0)):
             save_checkpoint(config.checkpoint_path,
                             checkpoint_payload(state, config, seq_it, growths))
-        if on_iteration is not None and on_iteration(seq_it, state.net, config, metrics):
-            break
+        if on_iteration is not None:
+            stop = bool(on_iteration(seq_it, state.net, config, metrics))
+            if mesh is not None:
+                # Every rank stops where any asks to, or the next collective hangs.
+                stop = bool(mesh.all_reduce(torch.tensor([float(stop)], device=device), "max"))
+            if stop:
+                break
     if logger is not None:
         logger.flush()
     return state.net, state.cloud, state.encoded_initial, metrics

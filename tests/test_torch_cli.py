@@ -3,8 +3,14 @@
 - ``cli.train``'s parser has every option of the JAX package's
   (positionals, flags, defaults, choices, types) and one more,
   ``--device``; ``cli.render``'s likewise;
-- ``--mesh-tiles`` other than 1 is refused, as ``--mesh-cameras`` other
-  than 0 is (the distributed step is not ported);
+- ``--mesh-tiles`` above 1 without ``--mesh-cameras`` is refused (the
+  JAX package ignores it; the distributed step is held in
+  test_torch_dist_train.py and test_torch_process.py);
+- the JAX package's renderer names: ``resolve_impl`` takes "pallas" and
+  "pallas_padded" as the exact and padded paths' CUDA kernels for CUDA
+  tensors and their plain versions for CPU tensors; ``cli.densify``,
+  ``cli.train`` and ``cli.render`` run on the CPU with ``--renderer pallas``
+  and ``--renderer pallas_padded``;
 - a port-only run on the CPU of a tiny sequence (3 frames, 3 cameras at
   32x24, 200 Gaussians): ``cli.train`` with host staging and a checkpoint
   every iteration, ``cli.train`` again resumed from that checkpoint with
@@ -26,6 +32,7 @@ import torch
 import splatpu.cli.render as jrender
 import splatpu.cli.train as jtrain
 import splatpu.obs.cache
+import splatpu_torch.cli.densify as tdensify
 import splatpu_torch.cli.render as trender
 import splatpu_torch.cli.train as ttrain
 import splatpu_torch.train.inference as tinference
@@ -33,6 +40,7 @@ from splatpu_torch.data.dataset import save_synthetic_sequence
 from splatpu_torch.data.synthetic import lookat_matrices, make_random_cloud
 from splatpu_torch.io.checkpoint import load_checkpoint, save_cloud
 from splatpu_torch.io.images import read_image
+from splatpu_torch.render.api import resolve_impl
 
 torch.set_num_threads(1)
 
@@ -73,7 +81,7 @@ def test_parser_matches_jax(jax_main, port_parser, monkeypatch):
 
 
 def test_mesh_tiles_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.5"):
+    with pytest.raises(SystemExit):
         ttrain.main(["seq", str(tmp_path), "1", "1", "0.001", "8", "1", "--device", "cpu",
                      "--mesh-tiles", "2"])
 
@@ -145,3 +153,25 @@ def test_train_resume_render_on_cpu(sequence, monkeypatch):
             a = read_image(bundle / "renders" / "frames" / name / f"{t:06d}.png").astype(int)
             b = read_image(vis / "frames" / name / f"{t:06d}.png").astype(int)
             assert a.shape == (36, 64, 3) and np.abs(a - b).max() <= 1, (name, t)
+
+
+def test_jax_renderer_names(sequence, monkeypatch):
+    for device, exact, padded in (("cpu", "plain", "plain_padded"),
+                                  ("cuda", "cuda", "cuda_padded")):
+        assert resolve_impl("pallas", torch.device(device)) == exact
+        assert resolve_impl("pallas_padded", torch.device(device)) == padded
+    monkeypatch.setattr(tinference, "RENDER_WIDTH", 64)
+    monkeypatch.setattr(tinference, "RENDER_HEIGHT", 36)
+    seq, out = sequence / "seq", sequence / "out"
+    for renderer in ("pallas", "pallas_padded"):
+        tdensify.main([str(seq), "--iterations", "2", "--device", "cpu", "--renderer", renderer,
+                       "--tile", "16"])
+        rows = [json.loads(x) for x in (seq / "densify_metrics.jsonl").read_text().splitlines()]
+        assert all(np.isfinite(r["total_loss"]) for r in rows[-2:])
+        ttrain.main(["seq", str(sequence), "1", "1", "0.001", "16", "1", "-t", "1", "-o",
+                     str(out / renderer), "--device", "cpu", "--renderer", renderer,
+                     "--tile", "16"])
+        bundle = out / renderer / "seq" / "deformation_network"
+        trender.main([str(bundle), "--timesteps", "1", "--width", "32", "--height", "24",
+                      "--device", "cpu", "--renderer", renderer])
+        assert (bundle / "renders" / "frames" / "000" / "000001.png").is_file()

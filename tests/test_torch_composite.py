@@ -180,8 +180,10 @@ def test_work_counts():
 def test_dispatch_and_guards():
     assert resolve_impl("auto", torch.device("cpu")) == "plain"
     assert resolve_impl("auto", torch.device("cuda")) == "cuda"
-    with pytest.raises(ValueError):
-        resolve_impl("pallas", torch.device("cpu"))
+    # The JAX package's names: the card's kernels, or their plain versions
+    # on the CPU.
+    assert resolve_impl("pallas", torch.device("cpu")) == "plain"
+    assert resolve_impl("pallas_padded", torch.device("cuda")) == "cuda_padded"
     z = torch.zeros
     args = (z((1, 4, 10)), z((1, 8), dtype=torch.int32), z((1, 1), dtype=torch.int32),
             z((1, 1), dtype=torch.int32), z(3))

@@ -520,3 +520,52 @@ def test_stage1_dual_step_cuda_matches_plain(cuda):
         assert torch.isfinite(g).all(), k
         assert row_scaled_err(g, ref.grads[k]) <= 1e-4, k
         assert torch.equal(g, again.grads[k]), k
+
+
+def test_camera_sharded_training_on_two_gloo_ranks(cuda, tmp_path):
+    """``stage2.train(mesh_cameras=2)`` as two gloo ranks sharing the card
+    (``dist.launch``), against the single-process run on the card: every
+    step's loss 1e-5 relative, the parameters within 2e-2 of how far they
+    moved, both ranks' parameters bitwise equal, K1, K2 and the routing
+    once per step in each rank, and no rank importing JAX."""
+    from splatpu_torch.data.synthetic import lookat_matrices
+    from splatpu_torch.dist import ranks
+    from splatpu_torch.dist.launch import launch
+    from splatpu_torch.dynamics.network import init_deformation_net
+    from splatpu_torch.train.stage2 import Stage2Config
+
+    rng = np.random.default_rng(31)
+    n, w, h = 3000, 128, 96
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    fg = (rng.uniform(size=n) < 0.6).astype(np.float32)
+    cloud = dict(means=rng.uniform(-1, 1, (n, 3)).astype(np.float32),
+                 colors=rng.uniform(0, 1, (n, 3)).astype(np.float32),
+                 segmentation_masks=np.stack([fg, 0 * fg, 1 - fg], -1),
+                 rotation_quaternions=q / np.linalg.norm(q, axis=1, keepdims=True),
+                 opacity_logits=rng.uniform(-1, 4, (n, 1)).astype(np.float32),
+                 log_scales=np.log(rng.uniform(0.02, 0.1, (n, 3))).astype(np.float32),
+                 alive=np.ones(n, bool))
+    views = [[dict(camera_index=c, w2c=m[0], K=m[1], width=w, height=h,
+                   image=rng.uniform(size=(3, h, w)).astype(np.float32),
+                   segmentation=np.zeros((3, h, w), np.float32))
+              for c, m in enumerate(lookat_matrices((3.5 * np.sin(a), 0.3, -3.5 * np.cos(a)),
+                                                    width=w, height=h)
+                                    for a in np.linspace(0, 2 * np.pi, 6, endpoint=False))]
+             for _t in range(2)]
+    cfg = dict(total_iterations=2, warmup_iterations=1, hidden_dim=64, residual_blocks=2,
+               views_per_step=5, timestep_count=2, renderer="cuda", overflow_check_every=1)
+    single = ranks.train_on_rank(cloud, views, cfg, device="cuda")["runs"][0]
+    got = launch(ranks.train_on_rank, 2, (cloud, views, dict(cfg, mesh_cameras=2), "cuda"),
+                 tmp_path, device="cuda", timeout_s=300)
+    init = init_deformation_net(Stage2Config(**cfg).net_config(), torch.Generator().manual_seed(0),
+                                device="cpu").state_dict()
+    runs = [r["runs"][0] for r in got]
+    assert all(r["jax_modules"] == [] for r in got)
+    for (_, a), (_, b) in zip(single["rows"], runs[0]["rows"]):
+        assert b["total"] == pytest.approx(a["total"], rel=1e-5)
+    for k, v in single["params"].items():
+        moved = float(np.abs(v - init[k].numpy()).max())
+        assert float(np.abs(runs[0]["params"][k] - v).max()) <= 2e-2 * moved, k
+        assert np.array_equal(runs[1]["params"][k], runs[0]["params"][k]), k
+    for run in runs:
+        assert [run["counts"][k] for k in ("composite_fwd", "composite_bwd", "route_pairs")] == [4] * 3

@@ -22,8 +22,9 @@ JAX package's, on the same numpy inputs.
 - budget growth: a starved pair budget doubles, a span overflow grows the
   span and not the pairs;
 - the split noise: the same draws at the same mutation and key;
-- ``mesh_tiles`` refused; ``cli.densify``'s parser against JAX's (plus
-  ``--device``), ``--mesh-tiles 2`` refused, and a run on the CPU of a tiny
+- ``mesh_tiles`` with more than one view per step refused, as in the JAX
+  package; ``cli.densify``'s parser against JAX's (plus ``--device``),
+  ``--mesh-tiles 2 --views-per-step 2`` refused, and a run on the CPU of a tiny
   sequence with a checkpoint and a resume, its cloud read by both
   packages' ``load_cloud``.
 """
@@ -353,9 +354,11 @@ def test_split_noise_depends_on_key_and_iteration():
 
 
 def test_mesh_tiles_refused(scene):
+    """Tile strips take one view per step, as in the JAX package; the
+    sharded fit itself is held in test_torch_dist_train.py."""
     pc, views = scene
-    _, tcfg = configs(1, mesh_tiles=2)
-    with pytest.raises(NotImplementedError, match="A.5"):
+    _, tcfg = configs(2, mesh_tiles=2)
+    with pytest.raises(ValueError, match="views_per_step > 1 cannot be combined with mesh_tiles"):
         ts1.fit(pc, views, RADIUS, tcfg, device="cpu")
 
 
@@ -365,8 +368,8 @@ def test_cli_parser_matches_jax(monkeypatch, tmp_path):
     assert list(got) == list(want) + ["device"]
     assert {k: v for k, v in got.items() if k != "device"} == want
     assert got["device"][:2] == (("--device",), "cuda")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tcli.main([str(tmp_path), "--device", "cpu", "--mesh-tiles", "2"])
+    with pytest.raises(SystemExit):
+        tcli.main([str(tmp_path), "--device", "cpu", "--mesh-tiles", "2", "--views-per-step", "2"])
 
 
 def test_cli_densify_on_cpu(scene, tmp_path):
