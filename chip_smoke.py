@@ -197,6 +197,23 @@ scale: every rank computes on the same card.
    iterations x 2 timesteps; each sequence's network bitwise equal to that
    of an independent ``cli.train`` run of it.
 
+24. acceptance: the acceptance scene of the JAX package
+   (``runs/acceptance_truth/truth_n120000.npz``, 27 rig cameras at
+   1280x720) through ``splatpu_torch.tools.acceptance``: ``floor`` of
+   ``runs/s1_ceiling_r4b/densified_cloud.npz``, every per-camera PSNR
+   within ACCEPT_FLOOR_DB of the JAX package's floor script run on a CPU
+   (``runs/acceptance_truth/floor_jax_cpu.json``) and each timestep's mean
+   within ACCEPT_FLOOR_DB of ``runs/floor_100k.json`` (the TPU's, whose
+   per-camera values the JAX package itself misses by up to 0.13 dB off
+   the TPU; printed); then
+   ``stage1`` for ACCEPT_ITERATIONS iterations from the 40,000 truth points
+   (``fit`` counted: every iteration must launch K1, K2 and the routing
+   twice and no other composite), its per-iteration ``total_loss`` printed
+   beside ``runs/s1_ceiling_r4b/stage1_metrics.jsonl``'s, with both runs'
+   overflowed steps and budget growths (the TPU grew to max_pairs 960,512
+   and max_span 64 at 100); it fails unless the mean ``total_loss`` of the
+   iterations is within ACCEPT_LOSS_RTOL of the TPU log's.
+
 Prints one ``{"kernels": [...]}`` JSON line (the routing once per slot
 mode, each with the launches of its paths; the forwards also with their
 time and bound at the training shapes, ``train_ms`` and
@@ -252,6 +269,14 @@ DIST_ITERATIONS = 2        # dist_train, dist_2d: sequence iterations (config 3:
 DIST_TIMESTEPS = 2         # dist_train, dist_2d: timesteps (config 3: 150)
 DIST_S1_ITERATIONS = 4     # dist_stage1: iterations (config 2: 30,000; JAX's test: 4)
 DIST_S1_MUTATE = 2         # dist_stage1: the mutation (clones) at 2
+ACCEPT_TRUTH = ROOT / "runs" / "acceptance_truth" / "truth_n120000.npz"
+ACCEPT_FLOOR = ROOT / "runs" / "floor_100k.json"      # the TPU's floor of that scene
+ACCEPT_FLOOR_CPU = ROOT / "runs" / "acceptance_truth" / "floor_jax_cpu.json"  # the JAX
+                                                    # package's, on a CPU
+ACCEPT_TPU_LOG = ROOT / "runs" / "s1_ceiling_r4b" / "stage1_metrics.jsonl"
+ACCEPT_ITERATIONS = 120    # acceptance: stage-1 iterations (config 2: 8,000 or 30,000)
+ACCEPT_FLOOR_DB = 0.05     # acceptance: per-camera floor PSNR against the TPU's
+ACCEPT_LOSS_RTOL = 0.02    # acceptance: mean total_loss of the run against the TPU log's
 DIST_TIMEOUT_S = 240       # every launch of ranks: its result within this, or it fails
 DIST_RENDERER = "cuda"     # the distributed phases' render path
 BIG_P = (1 << 24) + (1 << 20)  # gid slots of K4's large-budget call
@@ -2030,6 +2055,112 @@ def train_batch_path(dev, cloud):
     return total
 
 
+def acceptance_path(dev):
+    """acceptance (module docstring): the fit's launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import splatpu_torch.train.stage1 as stage1
+    from splatpu_torch.tools import acceptance
+
+    common = ["--truth", str(ACCEPT_TRUTH), "--device", DEVICE]
+    with tempfile.TemporaryDirectory(prefix="splatpu_acceptance_") as tmp:
+        t0 = time.perf_counter()
+        got = acceptance.main(["floor", "--out", f"{tmp}/floor", *common])["floor_psnr"]
+        tpu = json.loads(ACCEPT_FLOOR.read_text())["floor_psnr"]
+        cpu = json.loads(ACCEPT_FLOOR_CPU.read_text())["floor_psnr"]
+        worst_cam, worst_mean = 0.0, 0.0
+        fmt = lambda xs: " ".join(f"{x:.4f}" for x in xs)  # noqa: E731
+        for t, row in tpu.items():
+            d_cpu = max(abs(a - b) for a, b in zip(got[t]["per_cam"], cpu[t]["per_cam"]))
+            d_tpu = max(abs(a - b) for a, b in zip(got[t]["per_cam"], row["per_cam"]))
+            d_mean = abs(got[t]["mean"] - row["mean"])
+            worst_cam, worst_mean = max(worst_cam, d_cpu), max(worst_mean, d_mean)
+            print(f"  floor {t}: port {fmt(got[t]['per_cam'])}; JAX on a CPU"
+                  f" {fmt(cpu[t]['per_cam'])} (largest |d| {d_cpu:.5f}); TPU"
+                  f" {fmt(row['per_cam'])} (largest |d| {d_tpu:.4f}, of the means {d_mean:.4f}) dB",
+                  flush=True)
+        print(f"  floor in {time.perf_counter() - t0:.2f} s; per camera against the JAX package"
+              f" on a CPU {worst_cam:.5f} dB, means against the TPU's {worst_mean:.5f} dB (limit"
+              f" {ACCEPT_FLOOR_DB} each)", flush=True)
+        if worst_cam > ACCEPT_FLOOR_DB or worst_mean > ACCEPT_FLOOR_DB:
+            fail(f"acceptance: floor PSNR {worst_cam:.5f} dB per camera from the JAX package's,"
+                 f" {worst_mean:.5f} dB in the mean from the TPU's")
+
+        launched, growths = [], []
+        real_fit = stage1.fit
+
+        class Tee:
+            """The tool's logger, plus each iteration's launches."""
+
+            def __init__(self, inner):
+                self.inner, self.seen = inner, launch_counts()
+
+            def log(self, metrics, step):
+                if "budget_growth" in metrics:
+                    growths.append((step, {k: int(v) for k, v in metrics.items()}))
+                else:
+                    now = launch_counts()
+                    launched.append({k: n - self.seen[k] for k, n in now.items()})
+                    self.seen = now
+                self.inner.log(metrics, step)
+
+            def flush(self):
+                self.inner.flush()
+
+        def counted_fit(*a, logger=None, **kw):
+            torch.cuda.synchronize()
+            zero_counts()
+            out = real_fit(*a, logger=Tee(logger), **kw)
+            torch.cuda.synchronize()
+            counts.update(launch_counts())
+            return out
+
+        counts = {}
+        stage1.fit = counted_fit
+        try:
+            t0 = time.perf_counter()
+            result = acceptance.main(["stage1", "--iters", str(ACCEPT_ITERATIONS), "--out",
+                                      f"{tmp}/s1", "--print-every", "20", *common])
+        finally:
+            stage1.fit = real_fit
+        rows = [json.loads(line) for line in open(f"{tmp}/s1/stage1_metrics.jsonl")]
+    wall = time.perf_counter() - t0
+    port = [r for r in rows if "total_loss" in r]
+    with open(ACCEPT_TPU_LOG) as f:
+        tpu_rows = [json.loads(line) for line in f]
+    tpu = [r for r in tpu_rows if "total_loss" in r and r["step"] < ACCEPT_ITERATIONS]
+    tpu_growths = [(r["step"], r) for r in tpu_rows
+                   if "budget_growth" in r and r["step"] < ACCEPT_ITERATIONS]
+    if [r["step"] for r in port] != list(range(ACCEPT_ITERATIONS)):
+        fail("acceptance: logged iterations are not 0..ACCEPT_ITERATIONS - 1")
+    losses = lambda rs: " ".join(f"{r['total_loss']:.4f}" for r in rs)  # noqa: E731
+    for c0 in range(0, ACCEPT_ITERATIONS, 10):
+        print(f"  total_loss {c0:3d}-{c0 + 9:3d}: port {losses(port[c0:c0 + 10])}", flush=True)
+        print(f"  {'':19s}TPU  {losses(tpu[c0:c0 + 10])}", flush=True)
+    mean_port = float(np.mean([r["total_loss"] for r in port]))
+    mean_tpu = float(np.mean([r["total_loss"] for r in tpu]))
+    ovf = lambda rs: sum(r["binning_overflow"] > 0 for r in rs)  # noqa: E731
+    print(f"  stage1: {ACCEPT_ITERATIONS} iterations in {wall:.2f} s wall (targets, points and"
+          f" the final evaluation included); overflowed iterations port {ovf(port)}, TPU"
+          f" {ovf(tpu)}; budget growths port {growths}, TPU {tpu_growths}; PSNR of the first 5"
+          f" views at the end {result['psnr_mean']:.4f} dB", flush=True)
+    rel = abs(mean_port - mean_tpu) / mean_tpu
+    print(f"  mean total_loss over 0-{ACCEPT_ITERATIONS - 1}: port {mean_port:.6f}, TPU"
+          f" {mean_tpu:.6f}, relative {rel:.4%} (limit {ACCEPT_LOSS_RTOL:.0%})", flush=True)
+    if rel > ACCEPT_LOSS_RTOL:
+        fail(f"acceptance: mean total_loss {mean_port} vs the TPU's {mean_tpu}")
+    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
+    for i, c in enumerate(launched):
+        bad = {k: n for k, n in c.items() if n != (2 if k in expected else 0)}
+        if bad:
+            fail(f"acceptance: iteration {i} launched {bad}, expected 2 each of {sorted(expected)}")
+    check_only(counts, expected, "acceptance")
+    return counts
+
+
 def flat_leaves(tree, prefix="") -> dict:
     """A checkpoint tree's arrays by path."""
     if isinstance(tree, dict):
@@ -2490,6 +2621,9 @@ def main() -> int:
 
     with phase("train_batch", 300):
         trained["train_batch"] = (train_batch_path(dev, cloud), None)
+
+    with phase("acceptance", 180):
+        trained["acceptance"] = (acceptance_path(dev), None)
 
     for k, v in ptxas_summary(_build.build_log).items():
         print(f"  ptxas {k}: {v}", flush=True)

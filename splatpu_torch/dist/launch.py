@@ -89,7 +89,7 @@ def _rank_main(fn, args, rank, nprocs, init_method, backend, device, log_path, r
         sys.stderr.flush()
 
 
-def launch(fn, nprocs: int, args=(), rendezvous_dir=None, device="cpu",
+def launch(fn, nprocs: int, args=(), rendezvous_dir=None, device="cuda",
            timeout_s: float = 600.0) -> list:
     """``fn(*args)`` on ``nprocs`` ranks, one thread each; the return
     values in rank order."""

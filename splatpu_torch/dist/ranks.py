@@ -84,7 +84,7 @@ class _Rows:
         pass
 
 
-def train_on_rank(cloud, views, config, device="cpu", net_state=None, runs: int = 1) -> dict:
+def train_on_rank(cloud, views, config, device="cuda", net_state=None, runs: int = 1) -> dict:
     """``stage2.train`` on this rank, ``runs`` times from the same start
     (``net_state``, a network state dict with the config's head settings,
     or the config's seeded network): per run the network's parameters,
@@ -116,7 +116,7 @@ def train_on_rank(cloud, views, config, device="cpu", net_state=None, runs: int 
 
 
 def steps_on_rank(cloud, w2c, K, images, picks, timesteps, config, net_state,
-                  device="cpu") -> dict:
+                  device="cuda") -> dict:
     """``dist.train_step.make_sharded_train_step`` on a (mesh_cameras,
     mesh_tiles) grid from ``net_state``: one step per (pick, timestep),
     each pick padded to the camera ranks, the previous state carried from
@@ -148,7 +148,7 @@ def steps_on_rank(cloud, w2c, K, images, picks, timesteps, config, net_state,
                         counts=launch_counts()))
 
 
-def fit_on_rank(points, views, radius: float, config, device="cpu") -> dict:
+def fit_on_rank(points, views, radius: float, config, device="cuda") -> dict:
     """``stage1.fit`` on this rank: the cloud's fields, rank 0's logged rows,
     the alive mask after each mutation, the wall seconds and the launches."""
     from splatpu_torch.train.stage1 import Stage1Config, fit
@@ -185,7 +185,7 @@ def _render_args(args: dict, device, grad: bool = False):
 
 
 def strips_on_rank(args: dict, camera: dict, tiles: int, renderer: str, binning,
-                   device="cpu") -> dict:
+                   device="cuda") -> dict:
     """``make_tile_sharded_render`` over ``tiles`` ranks: the whole image
     (V, C, H_pad, W) from the strips and the launches; then this rank's
     strip rendered again alone, its image, its ``last`` as the Gaussian id
@@ -221,7 +221,7 @@ def strips_on_rank(args: dict, camera: dict, tiles: int, renderer: str, binning,
 
 
 def dual_grads_on_rank(args: dict, colors_b, camera: dict, targets, seg_targets, tiles: int,
-                       renderer: str, binning, device="cpu") -> dict:
+                       renderer: str, binning, device="cuda") -> dict:
     """Stage 1's loss over ``make_tile_sharded_render_dual`` on ``tiles``
     ranks (one view, whole-image targets): the loss, the images and the
     gradients of every render input (``means2d_offset`` and ``colors_b``
@@ -252,7 +252,7 @@ def dual_grads_on_rank(args: dict, colors_b, camera: dict, targets, seg_targets,
 
 
 def losses_on_rank(args: dict, camera: dict, w2c, K, images, weights, cameras: int, tiles: int,
-                   renderer: str, binning, device="cpu", view_batching: str = "map") -> dict:
+                   renderer: str, binning, device="cuda", view_batching: str = "map") -> dict:
     """The camera-sharded (``tiles`` 1) or 2D image losses on a cameras x
     tiles grid: the sums, the flags, and the gradients of
     0.8 l1 + 0.2 ssim summed over every rank (the whole loss's)."""
@@ -278,7 +278,7 @@ def losses_on_rank(args: dict, camera: dict, w2c, K, images, weights, cameras: i
                         grads=dict(zip(names, map(_np, grads))), counts=launch_counts()))
 
 
-def sequences_on_rank(jobs: list, out_dir, device="cpu") -> dict:
+def sequences_on_rank(jobs: list, out_dir, device="cuda") -> dict:
     """``multiseq.train_sequences`` of this process's share of ``jobs``
     (dicts of ``name``, ``cloud``, ``views`` and ``config``, as
     ``train_on_rank`` takes them): each local sequence's network."""

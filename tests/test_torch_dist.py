@@ -115,7 +115,7 @@ def test_pad_views_and_picks_match_jax(v, axis):
 
 
 def test_mesh_grid_over_four_ranks(tmp_path):
-    got = launch(ranks.grid_on_rank, 4, (2, 2), tmp_path, timeout_s=TIMEOUT_S)
+    got = launch(ranks.grid_on_rank, 4, (2, 2), tmp_path, device="cpu", timeout_s=TIMEOUT_S)
     # Row-major like JAX's reshape: rank r at (r // tiles, r % tiles).
     jm = jget_mesh(camera_axis=2, tile_axis=2, devices=jax.devices()[:4])
     ids = [[d.id for d in row] for row in jm.devices]
@@ -149,8 +149,8 @@ def test_camera_sharded_losses_match_jax(tmp_path, renderer):
     images = np.random.default_rng(1).uniform(size=(4, 3, H, W)).astype(np.float32)
     weights = np.ones(4, np.float32)
     got = launch(ranks.losses_on_rank, 2, (a, dict(width=W, height=H), w2c, K, images, weights, 2,
-                                           1, renderer, BinningConfig(**BIN)), tmp_path,
-                 timeout_s=TIMEOUT_S)
+                                           1, renderer, BinningConfig(**BIN), "cpu"), tmp_path,
+                 device="cpu", timeout_s=TIMEOUT_S)
     jm = jget_mesh(camera_axis=2, tile_axis=1, devices=jax.devices()[:2])
     jl1, jss, _, _ = jax.jit(jcam(jm, jt.Camera(w2c=jnp.asarray(w2c[0]), K=jnp.asarray(K[0]),
                                                  width=W, height=H),
@@ -177,8 +177,8 @@ def test_padding_and_masking(tmp_path):
                                                     torch.from_numpy(images), 2))
     assert pw.shape[0] == 4 and float(wts.sum()) == 3.0
     got = launch(ranks.losses_on_rank, 2, (a, dict(width=W, height=H), pw, pK, pi, wts, 2, 1,
-                                           "stream", BinningConfig(**BIN)), tmp_path,
-                 timeout_s=TIMEOUT_S)
+                                           "stream", BinningConfig(**BIN), "cpu"), tmp_path,
+                 device="cpu", timeout_s=TIMEOUT_S)
     jm = jget_mesh(camera_axis=2, tile_axis=1, devices=jax.devices()[:2])
     jl1, jss, _, _ = jax.jit(jcam(jm, jt.Camera(w2c=jnp.asarray(w2c[0]), K=jnp.asarray(K[0]),
                                                  width=W, height=H),
@@ -199,8 +199,8 @@ def test_2d_sharded_losses_match_jax(tmp_path):
     weights = np.ones(4, np.float32)
     b16 = dict(BIN, tile=16, chunk_pairs=128)
     got = launch(ranks.losses_on_rank, 4, (a, dict(width=W, height=H), w2c, K, images, weights, 2,
-                                           2, "stream", BinningConfig(**b16)), tmp_path,
-                 timeout_s=TIMEOUT_S)
+                                           2, "stream", BinningConfig(**b16), "cpu"), tmp_path,
+                 device="cpu", timeout_s=TIMEOUT_S)
     jm = jget_mesh(camera_axis=2, tile_axis=2, devices=jax.devices()[:4])
     jl1, jss, _, _ = jax.jit(j2d(jm, jt.Camera(w2c=jnp.asarray(w2c[0]), K=jnp.asarray(K[0]),
                                                 width=W, height=H),
@@ -225,12 +225,12 @@ def test_2d_sharded_losses_match_jax(tmp_path):
 
 def test_launcher_raises_on_a_failing_or_hung_rank(tmp_path):
     with pytest.raises(RankFailure, match="ZeroDivisionError"):
-        launch(operator.truediv, 2, (1, 0), tmp_path / "fail", timeout_s=TIMEOUT_S)
+        launch(operator.truediv, 2, (1, 0), tmp_path / "fail", device="cpu", timeout_s=TIMEOUT_S)
     t0 = time.monotonic()
     with pytest.raises(RankFailure, match="timed out after 5 s"):
-        launch(time.sleep, 2, (600,), tmp_path / "hang", timeout_s=5)
+        launch(time.sleep, 2, (600,), tmp_path / "hang", device="cpu", timeout_s=5)
     assert time.monotonic() - t0 < 60
-    assert launch(operator.add, 2, (2, 3), tmp_path / "ok", timeout_s=TIMEOUT_S) == [5, 5]
+    assert launch(operator.add, 2, (2, 3), tmp_path / "ok", device="cpu", timeout_s=TIMEOUT_S) == [5, 5]
 
 
 FAKE_NVCC = """#!{python}
@@ -262,7 +262,7 @@ def test_one_build_per_host_under_ranks(tmp_path, monkeypatch):
     (build / "knn" / "keep").write_text("kNN library of another rank")
     monkeypatch.setenv("CUDA_HOME", str(cuda))
     monkeypatch.setenv("SPLATPU_TORCH_BUILD_DIR", str(build))
-    pids = launch(ranks.build_on_rank, 3, (), tmp_path / "rdv", timeout_s=TIMEOUT_S)
+    pids = launch(ranks.build_on_rank, 3, (), tmp_path / "rdv", device="cpu", timeout_s=TIMEOUT_S)
     callers = log.read_text().split()
     from splatpu_torch import _build
 

@@ -98,8 +98,8 @@ def test_sharded_step_matches_jax(tmp_path):
     sd = {k: v.numpy() for k, v in state_dict_from_jax(init).items()}
     got = launch(ranks.steps_on_rank, 2,
                  (cloud, w2c, K, images, picks, [1, 2],
-                  dict(binning=BinningConfig(**BIN), mesh_cameras=2, **common), sd), tmp_path,
-                 timeout_s=TIMEOUT_S)
+                  dict(binning=BinningConfig(**BIN), mesh_cameras=2, **common), sd, "cpu"), tmp_path,
+                 device="cpu", timeout_s=TIMEOUT_S)
     for r in got:
         assert r["jax_modules"] == []
         for jm, tm in zip(j_rows, r["rows"]):
@@ -134,10 +134,10 @@ def test_stage2_train_distributed_matches_single_process(tmp_path, cameras, tile
                views_per_step=5, timestep_count=2, renderer=renderer,
                binning=BinningConfig(**binning), seed=3, overflow_check_every=1,
                view_staging=staging)
-    single = ranks.train_on_rank(cloud, views, cfg)["runs"][0]
+    single = ranks.train_on_rank(cloud, views, cfg, "cpu")["runs"][0]
     got = launch(ranks.train_on_rank, cameras * tiles,
-                 (cloud, views, dict(cfg, mesh_cameras=cameras, mesh_tiles=tiles)), tmp_path,
-                 timeout_s=TIMEOUT_S)
+                 (cloud, views, dict(cfg, mesh_cameras=cameras, mesh_tiles=tiles), "cpu"), tmp_path,
+                 device="cpu", timeout_s=TIMEOUT_S)
     runs = [r["runs"][0] for r in got]
     assert all(r["jax_modules"] == [] for r in got)
     assert len(runs[0]["rows"]) == 4 and all(not r["rows"] for r in runs[1:])
@@ -157,9 +157,9 @@ def test_stage1_fit_mesh_tiles_matches_single_process(tmp_path):
     cfg = dict(iterations=4, capacity_factor=1.5, renderer="stream",
                binning=BinningConfig(**BIN16), densify=DensifyConfig(
                    mutate_start=2, mutate_every=2, window_end=3, grad_threshold=1e-7))
-    single = ranks.fit_on_rank(pts, views, 2.0, cfg)
-    got = launch(ranks.fit_on_rank, 2, (pts, views, 2.0, dict(cfg, mesh_tiles=2)), tmp_path,
-                 timeout_s=TIMEOUT_S)
+    single = ranks.fit_on_rank(pts, views, 2.0, cfg, "cpu")
+    got = launch(ranks.fit_on_rank, 2, (pts, views, 2.0, dict(cfg, mesh_tiles=2), "cpu"), tmp_path,
+                 device="cpu", timeout_s=TIMEOUT_S)
     assert all(r["jax_modules"] == [] for r in got)
     assert_rows_match(single["rows"], got[0]["rows"])
     assert sorted(single["alive"]) == sorted(got[0]["alive"]) == [2]
@@ -171,4 +171,4 @@ def test_stage1_fit_mesh_tiles_matches_single_process(tmp_path):
         np.testing.assert_allclose(got[0]["cloud"][k], single["cloud"][k], rtol=1e-4, atol=1e-6,
                                    err_msg=k)
     with pytest.raises(Exception, match="views_per_step > 1 cannot be combined with mesh_tiles"):
-        ranks.fit_on_rank(pts, views, 2.0, dict(cfg, mesh_tiles=2, views_per_step=2))
+        ranks.fit_on_rank(pts, views, 2.0, dict(cfg, mesh_tiles=2, views_per_step=2), "cpu")

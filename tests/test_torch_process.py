@@ -66,7 +66,7 @@ def test_topology_validation_and_current(tmp_path):
     with pytest.raises(ValueError):
         ProcessTopology(count=2, index=2)
     assert ProcessTopology.current() == ProcessTopology(1, 0)
-    assert launch(ProcessTopology.current, 2, (), tmp_path) == [ProcessTopology(2, 0),
+    assert launch(ProcessTopology.current, 2, (), tmp_path, device="cpu") == [ProcessTopology(2, 0),
                                                                  ProcessTopology(2, 1)]
 
 
@@ -115,13 +115,13 @@ def job_specs(n=3):
 
 def test_train_sequences_over_two_ranks_match_independent_runs(tmp_path):
     specs = job_specs(3)
-    got = launch(ranks.sequences_on_rank, 2, (specs, tmp_path / "out"), tmp_path / "rdv",
-                 timeout_s=TIMEOUT_S)
+    got = launch(ranks.sequences_on_rank, 2, (specs, tmp_path / "out", "cpu"), tmp_path / "rdv",
+                 device="cpu", timeout_s=TIMEOUT_S)
     assert [sorted(r["nets"]) for r in got] == [["seq0", "seq1"], ["seq2"]]
     assert all(r["jax_modules"] == [] for r in got)
     nets = {**got[0]["nets"], **got[1]["nets"]}
     for spec in specs:
-        alone = ranks.train_on_rank(spec["cloud"], spec["views"], spec["config"])["runs"][0]
+        alone = ranks.train_on_rank(spec["cloud"], spec["views"], spec["config"], "cpu")["runs"][0]
         for k, v in alone["params"].items():
             np.testing.assert_array_equal(nets[spec["name"]][k], v, err_msg=k)
     for pid, names in ((0, ["seq0", "seq1"]), (1, ["seq2"])):

@@ -118,8 +118,8 @@ def test_strip_render_matches_full_render_and_jax(tmp_path, n, renderer):
     c, args, w2c, K = scene()
     w = h = 64
     got = launch(ranks.strips_on_rank, n,
-                 (args, dict(w2c=w2c, K=K, width=w, height=h), n, renderer, BinningConfig(**BIN)),
-                 tmp_path, timeout_s=TIMEOUT_S)
+                 (args, dict(w2c=w2c, K=K, width=w, height=h), n, renderer, BinningConfig(**BIN),
+                  "cpu"), tmp_path, device="cpu", timeout_s=TIMEOUT_S)
     targs = tt.RenderArgs(**{k: torch.from_numpy(v.copy()) for k, v in args.items()})
     full = render(targs, torch_camera(w2c, K, w, h), impl=renderer,
                   config=BinningConfig(**BIN)).image.numpy()
@@ -146,7 +146,8 @@ def test_dual_strip_gradients_match_full_dual_render(tmp_path):
     seg_targets = (rng.uniform(size=(1, 3, h, w)) > 0.5).astype(np.float32)
     got = launch(ranks.dual_grads_on_rank, 2,
                  (args, seg, dict(w2c=w2c, K=K, width=w, height=h), targets, seg_targets, 2,
-                  "plain", BinningConfig(**BIN)), tmp_path, timeout_s=TIMEOUT_S)
+                  "plain", BinningConfig(**BIN), "cpu"), tmp_path, device="cpu",
+                 timeout_s=TIMEOUT_S)
     leaves = {k: torch.from_numpy(v.copy()).requires_grad_(True) for k, v in args.items()}
     cb = torch.from_numpy(seg.copy()).requires_grad_(True)
     out, seg_out = render_dual(tt.RenderArgs(**leaves), cb, torch_camera(w2c, K, w, h),
