@@ -214,6 +214,25 @@ scale: every rank computes on the same card.
    and max_span 64 at 100); it fails unless the mean ``total_loss`` of the
    iterations is within ACCEPT_LOSS_RTOL of the TPU log's.
 
+25. acceptance_config4: BASELINE config 4, the JAX package's
+   250,000-Gaussian truth (``runs/acceptance_truth/truth_n250000.npz``)
+   at the same rig, through the same tool.  ``stage1`` for
+   ACCEPT4_ITERATIONS iterations from its 83,333 points at the TPU run's
+   final prune 0.05 (counted as in acceptance); the first ``total_loss``
+   within ACCEPT_FIRST_LOSS_RTOL of the JAX package's on a CPU
+   (``first_loss_jax_cpu_n250000.json``, from
+   ``scripts/acceptance_first_loss.py``; the TPU's, 0.57% away, printed)
+   and the mean within ACCEPT_LOSS_RTOL of the TPU log's
+   (``config4_tpu_reference.json``, copied from ``runs/config4_s1``, which
+   is not sent to the card).  Then ``stage2`` of the truth animated with
+   ``runs/config4_250k``'s settings (the faithful quirk head, host
+   staging) for ACCEPT4_STAGE2 sequence iterations x timesteps at its
+   demand-sized budget: every step logged, no overflow, K2 and the routing
+   once per step; and the same steps from the same seeded network in this
+   process and over 2 camera ranks (gloo, the one card) under dist_train's
+   gates, the single-process losses within 1e-5 of the tool's.  Shows that
+   config 4's camera sharding runs and agrees, not that it scales.
+
 Prints one ``{"kernels": [...]}`` JSON line (the routing once per slot
 mode, each with the launches of its paths; the forwards also with their
 time and bound at the training shapes, ``train_ms`` and
@@ -277,6 +296,14 @@ ACCEPT_TPU_LOG = ROOT / "runs" / "s1_ceiling_r4b" / "stage1_metrics.jsonl"
 ACCEPT_ITERATIONS = 120    # acceptance: stage-1 iterations (config 2: 8,000 or 30,000)
 ACCEPT_FLOOR_DB = 0.05     # acceptance: per-camera floor PSNR against the TPU's
 ACCEPT_LOSS_RTOL = 0.02    # acceptance: mean total_loss of the run against the TPU log's
+ACCEPT4_TRUTH = ROOT / "runs" / "acceptance_truth" / "truth_n250000.npz"  # BASELINE config 4
+ACCEPT4_FIRST_LOSS = ROOT / "runs" / "acceptance_truth" / "first_loss_jax_cpu_n250000.json"
+ACCEPT4_TPU = ROOT / "runs" / "acceptance_truth" / "config4_tpu_reference.json"
+ACCEPT4_POINTS = 83_333     # acceptance_config4: every third of the truth
+ACCEPT4_ITERATIONS = 20     # acceptance_config4: stage-1 iterations (config 4: 15,000)
+ACCEPT4_PRUNE = 0.05        # the TPU run's final prune
+ACCEPT4_STAGE2 = (2, 2)     # acceptance_config4: sequence iterations x timesteps (30 x 150)
+ACCEPT_FIRST_LOSS_RTOL = 1e-4  # the first stage-1 loss against the JAX package's on a CPU
 DIST_TIMEOUT_S = 240       # every launch of ranks: its result within this, or it fails
 DIST_RENDERER = "cuda"     # the distributed phases' render path
 BIG_P = (1 << 24) + (1 << 20)  # gid slots of K4's large-budget call
@@ -1803,36 +1830,44 @@ def dist_render_path(dev, cloud):
 def dist_train_path(dev, cloud, base_cfg, card, name, cameras, tiles, timesteps):
     """dist_train / dist_2d (module docstring): the launches summed over the
     ranks of the sharded runs."""
+    from splatpu_torch.io.checkpoint import load_stage2_net
+    from splatpu_torch.tools.train_scene import render_targets
+
+    cfg = dataclasses.replace(base_cfg, total_iterations=DIST_ITERATIONS,
+                              timestep_count=timesteps, renderer=DIST_RENDERER)
+    # The checkpoint's network, as the train phase starts from: a fresh
+    # zero-init head would make the first step's gradients of every other
+    # layer exactly 0, and Adam turns the next near-0 ones into whole steps.
+    init = {k: v.numpy() for k, v in load_stage2_net(RUN / "stage2_ckpt.msgpack").items()}
+    views = render_targets(cloud, timesteps, *SERVE_SIZE, impl="cuda", device=dev)
+    print(f"  config 3 at full width: {timesteps} timesteps x {DIST_ITERATIONS} iterations,"
+          f" 5 of 27 views at {SERVE_SIZE[0]}x{SERVE_SIZE[1]} per step (padded to 6), the"
+          f" checkpoint's network (hidden {cfg.hidden_dim} x {cfg.residual_blocks} blocks)"
+          f" with a fresh Adam; mesh {cameras} cameras x {tiles} tiles", flush=True)
+    return hold_sharded(name, CLOUD, views, cfg, init, cameras, tiles, card)[0]
+
+
+def hold_sharded(name, cloud_path, views, cfg, init, cameras, tiles, card):
+    """``cfg``'s run from ``init`` (a network state of numpy arrays) on
+    ``views`` in this process against two runs over a (cameras, tiles)
+    grid of ranks (module docstring, dist_train): (the launches summed
+    over the ranks of the first sharded run, the single run's rows)."""
     import tempfile
 
     import numpy as np
     import torch
 
     from splatpu_torch.dist import ranks
-    from splatpu_torch.tools.train_scene import render_targets
 
-    from splatpu_torch.io.checkpoint import load_stage2_net
-
-    cfg = dataclasses.replace(base_cfg, total_iterations=DIST_ITERATIONS,
-                              timestep_count=timesteps, renderer=DIST_RENDERER)
-    n_steps = DIST_ITERATIONS * timesteps
-    # The checkpoint's network, as the train phase starts from: a fresh
-    # zero-init head would make the first step's gradients of every other
-    # layer exactly 0, and Adam turns the next near-0 ones into whole steps.
-    init = {k: v.numpy() for k, v in load_stage2_net(RUN / "stage2_ckpt.msgpack").items()}
-    views = render_targets(cloud, timesteps, *SERVE_SIZE, impl="cuda", device=dev)
+    n_steps = cfg.total_iterations * cfg.timestep_count
     with tempfile.TemporaryDirectory(prefix="splatpu_dist_") as tmp:
         vpath = str(Path(tmp) / "views.npz")
         ranks.save_views(vpath, views)
         del views
-        print(f"  config 3 at full width: {timesteps} timesteps x {DIST_ITERATIONS} iterations,"
-              f" 5 of 27 views at {SERVE_SIZE[0]}x{SERVE_SIZE[1]} per step (padded to 6), the"
-              f" checkpoint's network (hidden {cfg.hidden_dim} x {cfg.residual_blocks} blocks)"
-              f" with a fresh Adam; mesh {cameras} cameras x {tiles} tiles", flush=True)
         torch.cuda.synchronize()
-        single = ranks.train_on_rank(str(CLOUD), vpath, cfg, DEVICE, init)["runs"][0]
+        single = ranks.train_on_rank(str(cloud_path), vpath, cfg, DEVICE, init)["runs"][0]
         results = launch_ranks(ranks.train_on_rank, cameras * tiles,
-                               (str(CLOUD), vpath, dataclasses.replace(
+                               (str(cloud_path), vpath, dataclasses.replace(
                                    cfg, mesh_cameras=cameras, mesh_tiles=tiles), DEVICE, init, 2),
                                name)
     runs = [r["runs"] for r in results]
@@ -1886,7 +1921,7 @@ def dist_train_path(dev, cloud, base_cfg, card, name, cameras, tiles, timesteps)
     total = {k: sum(r["runs"][0]["counts"][k] for r in results)
              for k in results[0]["runs"][0]["counts"]}
     check_only(total, expected, name)
-    return total
+    return total, single["rows"]
 
 
 def dist_stage1_path(dev, pc, views, radius, card):
@@ -2055,14 +2090,73 @@ def train_batch_path(dev, cloud):
     return total
 
 
+def counted_stage1(argv: list):
+    """``acceptance.main(argv)`` (a ``stage1`` run) with its ``fit``
+    counted: (the result, the metrics rows, each iteration's launches, the
+    budget growths, the fit's launches, the wall seconds)."""
+    import torch
+
+    import splatpu_torch.train.stage1 as stage1
+    from splatpu_torch.tools import acceptance
+
+    launched, growths = [], []
+    real_fit = stage1.fit
+
+    class Tee:
+        """The tool's logger, plus each iteration's launches."""
+
+        def __init__(self, inner):
+            self.inner, self.seen = inner, launch_counts()
+
+        def log(self, metrics, step):
+            if "budget_growth" in metrics:
+                growths.append((step, {k: int(v) for k, v in metrics.items()}))
+            else:
+                now = launch_counts()
+                launched.append({k: n - self.seen[k] for k, n in now.items()})
+                self.seen = now
+            self.inner.log(metrics, step)
+
+        def flush(self):
+            self.inner.flush()
+
+    def counted_fit(*a, logger=None, **kw):
+        torch.cuda.synchronize()
+        zero_counts()
+        out = real_fit(*a, logger=Tee(logger), **kw)
+        torch.cuda.synchronize()
+        counts.update(launch_counts())
+        return out
+
+    counts = {}
+    stage1.fit = counted_fit
+    try:
+        t0 = time.perf_counter()
+        result = acceptance.main(argv)
+    finally:
+        stage1.fit = real_fit
+    wall = time.perf_counter() - t0
+    out = Path(argv[argv.index("--out") + 1])
+    rows = [json.loads(line) for line in open(out / "stage1_metrics.jsonl")]
+    return result, rows, launched, growths, counts, wall
+
+
+def check_stage1_launches(where: str, launched: list, counts: dict) -> None:
+    """Every iteration launched K1, K2 and the routing twice, nothing else."""
+    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
+    for i, c in enumerate(launched):
+        bad = {k: n for k, n in c.items() if n != (2 if k in expected else 0)}
+        if bad:
+            fail(f"{where}: iteration {i} launched {bad}, expected 2 each of {sorted(expected)}")
+    check_only(counts, expected, where)
+
+
 def acceptance_path(dev):
     """acceptance (module docstring): the fit's launch counts."""
     import tempfile
 
     import numpy as np
-    import torch
 
-    import splatpu_torch.train.stage1 as stage1
     from splatpu_torch.tools import acceptance
 
     common = ["--truth", str(ACCEPT_TRUTH), "--device", DEVICE]
@@ -2089,45 +2183,9 @@ def acceptance_path(dev):
             fail(f"acceptance: floor PSNR {worst_cam:.5f} dB per camera from the JAX package's,"
                  f" {worst_mean:.5f} dB in the mean from the TPU's")
 
-        launched, growths = [], []
-        real_fit = stage1.fit
-
-        class Tee:
-            """The tool's logger, plus each iteration's launches."""
-
-            def __init__(self, inner):
-                self.inner, self.seen = inner, launch_counts()
-
-            def log(self, metrics, step):
-                if "budget_growth" in metrics:
-                    growths.append((step, {k: int(v) for k, v in metrics.items()}))
-                else:
-                    now = launch_counts()
-                    launched.append({k: n - self.seen[k] for k, n in now.items()})
-                    self.seen = now
-                self.inner.log(metrics, step)
-
-            def flush(self):
-                self.inner.flush()
-
-        def counted_fit(*a, logger=None, **kw):
-            torch.cuda.synchronize()
-            zero_counts()
-            out = real_fit(*a, logger=Tee(logger), **kw)
-            torch.cuda.synchronize()
-            counts.update(launch_counts())
-            return out
-
-        counts = {}
-        stage1.fit = counted_fit
-        try:
-            t0 = time.perf_counter()
-            result = acceptance.main(["stage1", "--iters", str(ACCEPT_ITERATIONS), "--out",
-                                      f"{tmp}/s1", "--print-every", "20", *common])
-        finally:
-            stage1.fit = real_fit
-        rows = [json.loads(line) for line in open(f"{tmp}/s1/stage1_metrics.jsonl")]
-    wall = time.perf_counter() - t0
+        result, rows, launched, growths, counts, wall = counted_stage1(
+            ["stage1", "--iters", str(ACCEPT_ITERATIONS), "--out", f"{tmp}/s1", "--print-every",
+             "20", *common])
     port = [r for r in rows if "total_loss" in r]
     with open(ACCEPT_TPU_LOG) as f:
         tpu_rows = [json.loads(line) for line in f]
@@ -2152,13 +2210,126 @@ def acceptance_path(dev):
           f" {mean_tpu:.6f}, relative {rel:.4%} (limit {ACCEPT_LOSS_RTOL:.0%})", flush=True)
     if rel > ACCEPT_LOSS_RTOL:
         fail(f"acceptance: mean total_loss {mean_port} vs the TPU's {mean_tpu}")
-    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
-    for i, c in enumerate(launched):
-        bad = {k: n for k, n in c.items() if n != (2 if k in expected else 0)}
-        if bad:
-            fail(f"acceptance: iteration {i} launched {bad}, expected 2 each of {sorted(expected)}")
-    check_only(counts, expected, "acceptance")
+    check_stage1_launches("acceptance", launched, counts)
     return counts
+
+
+def acceptance_config4_path(dev, card):
+    """acceptance_config4 (module docstring): the launches of the fit, the
+    tool's stage-2 run and the first sharded run's ranks, summed."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from splatpu_torch.dynamics.network import init_deformation_net
+    from splatpu_torch.tools import acceptance
+    from splatpu_torch.train.stage2 import Stage2Config
+
+    ref = json.loads(ACCEPT4_TPU.read_text())
+    jax_cpu = json.loads(ACCEPT4_FIRST_LOSS.read_text())
+    common = ["--truth", str(ACCEPT4_TRUTH), "--device", DEVICE]
+    n_its = ACCEPT4_ITERATIONS
+    with tempfile.TemporaryDirectory(prefix="splatpu_config4_") as tmp:
+        result, rows, launched, growths, s1_counts, wall = counted_stage1(
+            ["stage1", "--iters", str(n_its), "--prune-opacity-final", str(ACCEPT4_PRUNE),
+             "--out", f"{tmp}/s1", "--print-every", "10", *common])
+        port = [r for r in rows if "total_loss" in r]
+        if [r["step"] for r in port] != list(range(n_its)):
+            fail("acceptance_config4: logged iterations are not 0..ACCEPT4_ITERATIONS - 1")
+        if int(port[0]["n_alive"]) != ACCEPT4_POINTS:
+            fail(f"acceptance_config4: {port[0]['n_alive']} initial points, not {ACCEPT4_POINTS}")
+        tpu = ref["stage1"]["total_loss"][:n_its]
+        fmt = lambda xs: " ".join(f"{x:.4f}" for x in xs)  # noqa: E731
+        for c0 in range(0, n_its, 10):
+            print(f"  total_loss {c0:3d}-{c0 + 9:3d}: port"
+                  f" {fmt([r['total_loss'] for r in port[c0:c0 + 10]])}", flush=True)
+            print(f"  {'':19s}TPU  {fmt(tpu[c0:c0 + 10])}", flush=True)
+        first, first_cpu, first_tpu = port[0]["total_loss"], jax_cpu["total_loss"], tpu[0]
+        rel_first = abs(first - first_cpu) / first_cpu
+        mean_port = float(np.mean([r["total_loss"] for r in port]))
+        mean_tpu = float(np.mean(tpu))
+        rel = abs(mean_port - mean_tpu) / mean_tpu
+        ovf = sum(r["binning_overflow"] > 0 for r in port)
+        print(f"  stage1 on the 250,000-Gaussian truth: {len(port)} iterations from"
+              f" {ACCEPT4_POINTS} points ({result['cameras']} cameras at {result['resolution']},"
+              f" final prune {ACCEPT4_PRUNE}) in {wall:.2f} s wall (targets and the final"
+              f" evaluation included); overflowed iterations port {ovf}, TPU"
+              f" {sum(f > 0 for f in ref['stage1']['binning_overflow'][:n_its])}; budget growths"
+              f" {growths}", flush=True)
+        print(f"  first total_loss: port {first:.7f}, the JAX package on a CPU {first_cpu:.7f}"
+              f" (relative {rel_first:.2e}, limit {ACCEPT_FIRST_LOSS_RTOL:.0e}), TPU"
+              f" {first_tpu:.7f} ({abs(first - first_tpu) / first_tpu:.4%} from the port's)",
+              flush=True)
+        print(f"  mean total_loss over 0-{n_its - 1}: port {mean_port:.6f}, TPU {mean_tpu:.6f},"
+              f" relative {rel:.4%} (limit {ACCEPT_LOSS_RTOL:.0%})", flush=True)
+        if rel_first > ACCEPT_FIRST_LOSS_RTOL:
+            fail(f"acceptance_config4: first loss {first} vs the JAX package's {first_cpu}")
+        if rel > ACCEPT_LOSS_RTOL:
+            fail(f"acceptance_config4: mean total_loss {mean_port} vs the TPU's {mean_tpu}")
+        check_stage1_launches("acceptance_config4", launched, s1_counts)
+
+        iters, timesteps = ACCEPT4_STAGE2
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        got = acceptance.main(["stage2", "--cloud", str(ACCEPT4_TRUTH), "--iters", str(iters),
+                               "--timesteps", str(timesteps), "--out", f"{tmp}/s2", *common])
+        torch.cuda.synchronize()
+        s2_counts = launch_counts()
+        wall = time.perf_counter() - t0
+        rows2 = [json.loads(line) for line in open(f"{tmp}/s2/stage2_metrics.jsonl")]
+    steps = [r for r in rows2 if "total" in r]
+    n_steps = iters * timesteps
+    print(f"  stage2 through the tool ({got['reference_run']}'s settings: head {got['head']},"
+          f" schedule {got['schedule']}, staging {got['staging']}): {iters} x {timesteps} steps"
+          f" on the {got['gaussians']}-Gaussian truth at a budget of {got['max_pairs']} pairs"
+          f" (the TPU's whole run: 1,578,752) in {wall:.2f} s wall (staging and the rollout"
+          f" evaluation included); rollout {got['rollout_psnr']}", flush=True)
+    for r in steps:
+        print(f"  step {r['step']}: loss {r['total']:.6f} (l1 {r['l1']:.5f} ssim"
+              f" {r['ssim']:.5f} rig {r['rigidity']:.3e}) lr {r['learning_rate']:.4e}"
+              f" {r['step_ms']:.2f} ms", flush=True)
+    print(f"  the TPU's first steps (150 timesteps, its own network draw): losses"
+          f" {fmt(ref['stage2']['total'])}", flush=True)
+    if got["reference_run"] != "runs/config4_250k" or not got["head"]["quirk_compat"]:
+        fail(f"acceptance_config4: stage2 took {got['reference_run']}'s head {got['head']}")
+    if [r["step"] for r in steps] != list(range(1, n_steps + 1)) or not got["completed"]:
+        fail("acceptance_config4: stage2 did not log every step")
+    if got["binning"]["overflow_steps"] or not np.isfinite([r["total"] for r in steps]).all():
+        fail(f"acceptance_config4: stage2 overflowed or diverged ({got['binning']})")
+    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
+    if not (s2_counts["composite_bwd"] == s2_counts["route_pairs"] == n_steps
+            and s2_counts["composite_fwd"] >= n_steps):
+        fail(f"acceptance_config4: stage2 launched {s2_counts} in {n_steps} steps")
+    check_only(s2_counts, expected, "acceptance_config4 stage2")
+
+    # The same steps in this process and over 2 camera ranks.
+    args = acceptance.parser().parse_args(["stage2", *common])
+    scene = acceptance.load_scene(args)
+    settings = acceptance.stage2_settings(scene.truth.capacity, args)
+    imgs = acceptance.stage_truth_views(scene, timesteps, settings["motion"])
+    w2c, K = scene.camera.w2c.cpu().numpy(), scene.camera.K.cpu().numpy()
+    views = [[dict(camera_index=i, w2c=w2c[i], K=K[i], width=scene.width, height=scene.height,
+                   image=imgs[t, i], segmentation=np.zeros((3, 1, 1), np.float32))
+              for i in range(scene.count)] for t in range(timesteps)]
+    del scene, imgs
+    cfg = Stage2Config(total_iterations=iters, warmup_iterations=max(1, iters // 10),
+                       timestep_count=timesteps, renderer=DIST_RENDERER, **settings["config"])
+    net = init_deformation_net(cfg.net_config(), torch.Generator().manual_seed(cfg.seed),
+                               device="cpu")
+    init = {k: v.numpy() for k, v in net.state_dict().items()}
+    print(f"  2 camera ranks: the same {iters} x {timesteps} steps, 5 of 27 views per step"
+          " (padded to 6), the seeded network the tool drew", flush=True)
+    total, single = hold_sharded("acceptance_config4", ACCEPT4_TRUTH, views, cfg, init, 2, 1,
+                                 card)
+    worst = max(abs(b["total"] - a["total"]) / abs(a["total"])
+                for a, (_, b) in zip(steps, single))
+    print(f"  the single-process run against the tool's: losses within {worst:.2e} relative",
+          flush=True)
+    if not worst <= 1e-5:
+        fail(f"acceptance_config4: the single-process run's losses {worst:.2e} from the tool's")
+    return {k: s1_counts[k] + s2_counts[k] + total[k] for k in total}
 
 
 def flat_leaves(tree, prefix="") -> dict:
@@ -2624,6 +2795,9 @@ def main() -> int:
 
     with phase("acceptance", 180):
         trained["acceptance"] = (acceptance_path(dev), None)
+
+    with phase("acceptance_config4", 420):
+        trained["acceptance_config4"] = (acceptance_config4_path(dev, card), None)
 
     for k, v in ptxas_summary(_build.build_log).items():
         print(f"  ptxas {k}: {v}", flush=True)

@@ -17,8 +17,8 @@ settings (the JAX package's records only the sizes and timestep count).
 ``--mesh-cameras C`` (with ``--mesh-tiles T``) trains on a C x T grid of
 ranks: run as a rank of a process group of C x T ranks, or alone, and it
 starts the ranks on this host itself (``dist.launch``; gloo when they share
-a card).  Rank 0 writes every artifact.  ``--mesh-tiles`` above 1 without
-``--mesh-cameras`` is refused (the JAX package ignores it).
+a card).  Rank 0 writes every artifact.  Without ``--mesh-cameras``,
+``--mesh-tiles`` is ignored and one process trains, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -92,8 +92,6 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     p = parser()
     args = p.parse_args(argv)
-    if args.mesh_tiles > 1 and args.mesh_cameras <= 0:
-        p.error("--mesh-tiles above 1 needs --mesh-cameras")
     ranks = args.mesh_cameras * args.mesh_tiles if args.mesh_cameras > 0 else 1
     if ranks > 1 and world()[1] == 1:
         return main_on_ranks(main, argv, ranks, args.device)

@@ -20,8 +20,12 @@ independent ``cli.train`` run of it would (its network bitwise equal).
 - ``--mesh-cameras C`` shards each sequence's sampled views over C ranks,
   started on this host, which train every sequence together (the JAX
   package shards them over one process's local devices).  Refused with
-  more than one process: the ranks of one process's jobs and the
-  processes of the batch would need two levels of groups.
+  more than one process, where the JAX package has no working
+  counterpart: its ``train`` builds the mesh over every process's devices
+  (``splatpu/dist/mesh.py:41-57``, ``splatpu/train/stage2.py:469-478``)
+  while each process trains its own sequences
+  (``splatpu/dist/multiseq.py:105``), so the mesh raises or one step mixes
+  sequences.
 """
 
 from __future__ import annotations

@@ -6,6 +6,8 @@
         [--prune-opacity-final F] [--eval-psnr-at 2500,5000,...]
         [--resume-from CKPT] [--stop-after N] [--out DIR]
     python -m splatpu_torch.tools.acceptance stage2 [--cloud PATH] [--iters 40]
+        [--lr F] [--hidden N] [--blocks N] [--delta-scale F] [--no-quirk]
+        [--no-double-residual] [--zero-init-head] [--time-gate-head]
         [--resume-from CKPT] [--stop-after N] [--out DIR]
 
 Every subcommand takes ``--width``, ``--height``, ``--cameras``, ``--truth``
@@ -15,9 +17,10 @@ for tests, through their plain versions).  ``--out`` is a directory, by
 default ``splatpu_acceptance`` under the system's temporary directory.
 
 The scene is the JAX scripts' (``acceptance_full.py:33-53``): the truth
-cloud is read from ``runs/acceptance_truth/truth_n120000.npz``, which
-``scripts/export_acceptance_truth.py`` writes from the JAX package's
-threefry draw (the port cannot draw it); the rig is
+cloud is read from ``runs/acceptance_truth/truth_n120000.npz`` (BASELINE
+configs 2 and 3) or ``truth_n250000.npz`` (config 4, ``--truth-n 250000``
+there), which ``scripts/export_acceptance_truth.py`` writes from the JAX
+package's threefry draw (the port cannot draw it); the rig is
 ``train_scene.rig_cameras`` (27 look-at cameras at 1280x720), the motion
 ``train_scene.moved_means`` with the flagship's rot_rate 0.003 and bob_amp
 0.1.  Every target
@@ -42,13 +45,20 @@ overflows, as the JAX scripts assert.
   and, at the end, ``densified_cloud.npz``.
 - ``stage2`` (``acceptance_full.py:356-681``): 150 timesteps x 27 cameras
   of uint8 truth views staged in host memory, ``train`` with the settings
-  of ``runs/config3_100k_r5/stage2_result.json`` (its ``head``,
-  ``schedule``, ``motion``, timesteps and sequence iterations) and
-  ``scripts/run_flagship_r5.sh``'s staging (``device_rotate``, 8 resident
-  cameras, restaged every 10 sequence iterations), a checkpoint every 5
+  of the TPU's stage-2 run of the truth scene (``STAGE2_RUNS``: its result
+  file's ``head``, ``schedule``, ``motion``, timesteps and sequence
+  iterations, and the view staging it ran with), each overridden by the
+  JAX script's flag of the same name where given, a checkpoint every 5
   sequence iterations, and the rollout PSNR at t1 / t75 / t150 of camera 0
-  every 5.  Writes ``stage2_metrics.jsonl`` and ``stage2_result.json``
-  (the JAX keys).
+  every 5.  The 120,000-Gaussian scene's run is the config-3 flagship
+  (``runs/config3_100k_r5``, ``scripts/run_flagship_r5.sh``'s
+  ``device_rotate`` staging: 8 resident cameras, restaged every 10
+  sequence iterations); the 250,000-Gaussian scene's is config 4
+  (``runs/config4_250k``: the truth animated, ``--cloud`` pointed at the
+  truth npz; the round-4 script's "host" staging, and its defaults for
+  the keys that result lacks, ``schedule`` and ``time_gate_head``).
+  Writes ``stage2_metrics.jsonl`` and ``stage2_result.json`` (the JAX
+  keys).
 
 ``--stop-after N`` ends the process at the first checkpoint at least N
 iterations (stage 1) or sequence iterations (stage 2) after its start, with
@@ -88,7 +98,17 @@ from splatpu_torch.tools.train_scene import moved_means, rig_cameras, stage1_poi
 ROOT = Path(__file__).resolve().parents[2]
 TRUTH = ROOT / "runs" / "acceptance_truth" / "truth_n120000.npz"
 FITTED = ROOT / "runs" / "s1_ceiling_r4b" / "densified_cloud.npz"
-FLAGSHIP = ROOT / "runs" / "config3_100k_r5" / "stage2_result.json"
+# The TPU's stage-2 run of each truth scene, by its Gaussian count, and
+# the view staging that run used; another scene (the tests') takes the
+# first.  Keys a result lacks take the JAX script's defaults
+# (``acceptance_full.py:712-749``).
+STAGE2_RUNS = {
+    120_000: ("config3_100k_r5", dict(view_staging="device_rotate", resident_cameras=8,
+                                      restage_every=10)),
+    250_000: ("config4_250k", dict(view_staging="host")),
+}
+SCRIPT_SCHEDULE = {"steps_per_timestep": 1, "timestep_order": "sequential", "hidden_dim": 128,
+                   "residual_blocks": 3}
 DEFAULT_OUT = Path(tempfile.gettempdir()) / "splatpu_acceptance"
 STAGE_CHUNK = 8          # cameras per staged render
 STAGING_HEADROOM = 1.5   # demand headroom of every target and evaluation budget
@@ -216,7 +236,7 @@ def chunk_end(start: int, total: int, stop_after, every: int) -> int:
 
 def run_floor(args) -> dict:
     scene = load_scene(args)
-    motion = stage2_settings()["motion"]
+    motion = stage2_settings(scene.truth.capacity)["motion"]
     fitted = load_cloud(args.cloud, device=args.device)
     binning = staging_binning(scene.truth, scene.camera)
     ncam = slice(0, EVAL_VIEWS)
@@ -349,21 +369,33 @@ def run_stage1(args) -> dict:
                   iterations=args.iters, psnr_first5_views=ps, psnr_mean=final["psnr_mean"])
 
 
-def stage2_settings() -> dict:
+def stage2_settings(truth_n: int, args=None) -> dict:
     """``Stage2Config`` fields, the motion, the label, the sequence
-    iterations and the timesteps of the config-3 flagship, from its JAX
-    result file's ``head``, ``schedule`` and ``motion``."""
-    r = json.loads(FLAGSHIP.read_text())
-    head, sched = r["head"], r["schedule"]
+    iterations and the timesteps of the TPU's stage-2 run of the
+    ``truth_n``-Gaussian scene, from its JAX result file's ``head``,
+    ``schedule`` and ``motion``, with ``args``' head flags applied."""
+    name, staging = STAGE2_RUNS.get(truth_n, next(iter(STAGE2_RUNS.values())))
+    r = json.loads((ROOT / "runs" / name / "stage2_result.json").read_text())
+    head, sched = r["head"], {**SCRIPT_SCHEDULE, **r.get("schedule", {})}
+    config = dict(
+        learning_rate=head["lr"], delta_scale=head["delta_scale"],
+        double_residual=head["double_residual"], zero_init_head=head["zero_init_head"],
+        time_gate_head=head.get("time_gate_head", False), quirk_compat=head["quirk_compat"],
+        hidden_dim=sched["hidden_dim"], residual_blocks=sched["residual_blocks"],
+        steps_per_timestep=sched["steps_per_timestep"], timestep_order=sched["timestep_order"],
+        **staging,
+    )
+    if args is not None:
+        given = {"learning_rate": args.lr, "hidden_dim": args.hidden,
+                 "residual_blocks": args.blocks, "delta_scale": args.delta_scale,
+                 "quirk_compat": False if args.no_quirk else None,
+                 "double_residual": False if args.no_double_residual else None,
+                 "zero_init_head": True if args.zero_init_head else None,
+                 "time_gate_head": True if args.time_gate_head else None}
+        config.update({k: v for k, v in given.items() if v is not None})
     return {
-        "config": dict(
-            learning_rate=head["lr"], delta_scale=head["delta_scale"],
-            double_residual=head["double_residual"], zero_init_head=head["zero_init_head"],
-            time_gate_head=head["time_gate_head"], quirk_compat=head["quirk_compat"],
-            hidden_dim=sched["hidden_dim"], residual_blocks=sched["residual_blocks"],
-            steps_per_timestep=sched["steps_per_timestep"],
-            timestep_order=sched["timestep_order"],
-        ),
+        "run": name,
+        "config": config,
         "motion": r["motion"],
         "label": r["config"],
         "iters": r["sequence_iterations_total"],
@@ -398,7 +430,8 @@ def run_stage2(args) -> dict:
 
     t0 = time.time()
     resuming = args.resume_from is not None
-    settings = stage2_settings()
+    scene = load_scene(args)
+    settings = stage2_settings(scene.truth.capacity, args)
     iters = args.iters or settings["iters"]
     timesteps = args.timesteps or settings["timesteps"]
     motion = settings["motion"]
@@ -407,7 +440,6 @@ def run_stage2(args) -> dict:
     result_path = out_dir / "stage2_result.json"
     metrics_path = out_dir / "stage2_metrics.jsonl"
     prior = prior_result(result_path, resuming)
-    scene = load_scene(args)
     initial = load_cloud(args.cloud, device=args.device)
 
     sync(args.device)
@@ -428,7 +460,6 @@ def run_stage2(args) -> dict:
     every = STAGE2_CHECKPOINT_EVERY
     cfg = Stage2Config(
         total_iterations=iters, warmup_iterations=max(1, iters // 10), timestep_count=timesteps,
-        view_staging="device_rotate", resident_cameras=8, restage_every=10,
         checkpoint_every=every, checkpoint_path=str(out_dir / "stage2_ckpt.msgpack"),
         **settings["config"],
     )
@@ -461,6 +492,7 @@ def run_stage2(args) -> dict:
     wall_before = float(prior.get("wall_seconds", 0.0))
     result = {
         "config": settings["label"],
+        "reference_run": f"runs/{settings['run']}",
         "gaussians": scene.truth.capacity,
         "animated_cloud": shown(args.cloud),
         "timesteps": timesteps,
@@ -544,7 +576,7 @@ def parser() -> argparse.ArgumentParser:
     f = common(sub.add_parser("floor", help="the do-nothing floor (scripts/floor_psnr.py)"))
     f.add_argument("--cloud", type=Path, default=FITTED)
 
-    s1 = common(sub.add_parser("stage1", help="the config-2 fit"))
+    s1 = common(sub.add_parser("stage1", help="the config-2 (or config-4) fit"))
     s1.add_argument("--iters", type=int, default=30_000)
     s1.add_argument("--prune-opacity-final", type=float, default=None,
                     help="the final prune's opacity threshold (default DensifyConfig's 0.25)")
@@ -553,10 +585,24 @@ def parser() -> argparse.ArgumentParser:
     s1.add_argument("--checkpoint-every", type=int, default=2500)
     s1.add_argument("--print-every", type=int, default=500)
 
-    s2 = common(sub.add_parser("stage2", help="the config-3 flagship run"))
+    s2 = common(sub.add_parser("stage2", help="the config-3 flagship run (config 4 on the"
+                                              " 250,000-Gaussian truth)"))
     s2.add_argument("--cloud", type=Path, default=FITTED)
-    s2.add_argument("--iters", type=int, default=None, help="default: the flagship's 40")
-    s2.add_argument("--timesteps", type=int, default=None, help="default: the flagship's 150")
+    s2.add_argument("--iters", type=int, default=None, help="default: the TPU run's (40, 30)")
+    s2.add_argument("--timesteps", type=int, default=None, help="default: the TPU run's 150")
+    # The JAX script's head flags (acceptance_full.py:703-738); unset, the
+    # TPU run's value.
+    s2.add_argument("--lr", type=float, default=None)
+    s2.add_argument("--hidden", type=int, default=None, help="deformation-net hidden dim")
+    s2.add_argument("--blocks", type=int, default=None, help="deformation-net residual blocks")
+    s2.add_argument("--delta-scale", type=float, default=None, help="head output scale")
+    s2.add_argument("--no-quirk", action="store_true",
+                    help="the interleaved sin/cos encoding, not the reference's quirk")
+    s2.add_argument("--no-double-residual", action="store_true",
+                    help="drop the network-adds-input residual")
+    s2.add_argument("--zero-init-head", action="store_true", help="zero-init the output layer")
+    s2.add_argument("--time-gate-head", action="store_true",
+                    help="gate the head output by progress t/T")
 
     for q in (s1, s2):
         q.add_argument("--resume-from", type=Path, default=None)

@@ -6,15 +6,22 @@ result files and per-step logs (no device needed).
 For each pair of runs it prints the results beside each other with the
 tolerances they are held to, and walks the two metrics logs window by
 window (stage 1: 100 iterations; stage 2: one sequence iteration) to the
-first window whose mean loss parts by more than 2%.  Card runs, under
-``--card``:
+first window whose mean loss parts by more than 2%, and says whether it
+lies after a resume that the TPU log shows (a step logged again), which
+re-seeds the view sampler: the windows are reported, not held to a
+tolerance.
+Card runs, under ``--card``:
 
 - ``floor/floor.json``: each timestep's mean against ``runs/floor_100k.json``
   (the TPU's), each camera against the JAX package's floor script run on
   a CPU (``runs/acceptance_truth/floor_jax_cpu.json``);
 - ``s1_8000/`` against ``runs/s1_ceiling_r4b/``;
 - ``s1_30000/`` against ``runs/acceptance_s1/``;
-- ``s2_flagship/`` against ``runs/config3_100k_r5/``.
+- ``s2_flagship/`` against ``runs/config3_100k_r5/`` (its rollout also
+  above the floor at t75 and t150);
+- BASELINE config 4, the 250,000-Gaussian truth: ``s1_config4_15000/``
+  against ``runs/config4_s1/`` and ``s2_config4/`` against
+  ``runs/config4_250k/``.
 
 A run missing on the card side is reported as missing.  Exits 1 if a
 present run misses a tolerance.
@@ -37,7 +44,10 @@ S1_GAUSSIANS_RTOL = 0.05
 S2_PSNR_DB = 1.0
 S2_LOSS_RTOL = 0.05
 FLOOR_CPU = ROOT / "runs" / "acceptance_truth" / "floor_jax_cpu.json"
-STAGE1 = {"s1_8000": "s1_ceiling_r4b", "s1_30000": "acceptance_s1"}
+STAGE1 = {"s1_8000": "s1_ceiling_r4b", "s1_30000": "acceptance_s1",
+          "s1_config4_15000": "config4_s1"}
+STAGE2 = {"s2_flagship": "config3_100k_r5", "s2_config4": "config4_250k"}
+FLOORED = {"s2_flagship": ROOT / "runs" / "floor_100k.json"}  # the floor of its scene
 
 
 def rows(path: Path) -> list:
@@ -63,6 +73,32 @@ def first_parting(card: dict, tpu: dict) -> tuple:
     rel = {w: abs(card[w] - tpu[w]) / abs(tpu[w]) for w in common}
     first = next((w for w in common if rel[w] > WINDOW_RTOL), None)
     return first, max(rel.values(), default=0.0), len(common)
+
+
+def resumes(log: list) -> list:
+    """The steps at which a run went on from an earlier checkpoint: a step
+    logged below the row before it."""
+    steps = [r["step"] for r in log]
+    return [b for a, b in zip(steps, steps[1:]) if b < a]
+
+
+def report_windows(what: str, card: dict, tpu: dict, label, tpu_resumes: list,
+                   first_step: int = 0, size: int = 1) -> None:
+    """The first window parting by more than WINDOW_RTOL, and where it lies
+    against the TPU run's resumes (``tpu_resumes``, steps)."""
+    first, worst, n = first_parting(card, tpu)
+    where = "none"
+    if first is not None:
+        before = [s for s in tpu_resumes if s <= first_step + first * size]
+        where = label(first) + (f", after the TPU run's resume at step {before[-1]}"
+                                if before else "")
+    print(f"  {what} ({n} windows): first parting by > {WINDOW_RTOL:.0%}: {where}; largest"
+          f" {worst:.2%}")
+    if tpu_resumes:
+        pre = {w: v for w, v in card.items()
+               if first_step + (w + 1) * size - 1 < min(tpu_resumes)}
+        _, worst_pre, n_pre = first_parting(pre, tpu)
+        print(f"    before the TPU run's first resume ({n_pre} windows): largest {worst_pre:.2%}")
 
 
 def growths(log: list) -> list:
@@ -129,11 +165,11 @@ def stage1(card_dir: Path, name: str, tpu_name: str, ok: list) -> None:
         print(f"  psnr@{p['iteration']}: {p['psnr_mean']:.4f} dB, {p['gaussians']} Gaussians")
     clog, tlog = rows(cdir / "stage1_metrics.jsonl"), rows(tdir / "stage1_metrics.jsonl")
     print(f"  budget growths: card {growths(clog)}, TPU {growths(tlog)}")
+    print(f"  resumed at: card {resumes(clog)}, TPU {resumes(tlog)}")
     for key in ("total_loss", "n_alive"):
-        first, worst, n = first_parting(windows(clog, key, 100), windows(tlog, key, 100))
-        where = "none" if first is None else f"iterations {100 * first}-{100 * first + 99}"
-        print(f"  {key} per 100 iterations ({n} windows): first parting by >"
-              f" {WINDOW_RTOL:.0%}: {where}; largest {worst:.2%}")
+        report_windows(f"{key} per 100 iterations", windows(clog, key, 100),
+                       windows(tlog, key, 100), lambda w: f"iterations {100 * w}-{100 * w + 99}",
+                       resumes(tlog), size=100)
     muts = {r["step"]: r for r in tlog if "cloned" in r}
     for r in clog:
         if "cloned" in r and r["step"] in muts and r["step"] % 1000 == 0:
@@ -142,26 +178,27 @@ def stage1(card_dir: Path, name: str, tpu_name: str, ok: list) -> None:
                   f" {int(m['n_alive'])}")
 
 
-def stage2(card_dir: Path, ok: list) -> None:
-    cdir, tdir = card_dir / "s2_flagship", ROOT / "runs" / "config3_100k_r5"
+def stage2(card_dir: Path, name: str, tpu_name: str, ok: list) -> None:
+    cdir, tdir = card_dir / name, ROOT / "runs" / tpu_name
     if not (cdir / "stage2_result.json").exists():
-        print(f"s2_flagship: missing ({cdir})")
+        print(f"{name}: missing ({cdir})")
         return
     got = json.loads((cdir / "stage2_result.json").read_text())
     ref = json.loads((tdir / "stage2_result.json").read_text())
     t = ref["timesteps"]
-    print(f"s2_flagship against runs/config3_100k_r5: {got['sequence_iterations_done']} of"
+    print(f"{name} against runs/{tpu_name}: {got['sequence_iterations_done']} of"
           f" {got['sequence_iterations_total']} sequence iterations, completed"
           f" {got['completed']}; budget card {got.get('max_pairs')}, TPU {ref['max_pairs']}")
     if got["completed"]:
-        floor_ref = json.loads((ROOT / "runs" / "floor_100k.json").read_text())["floor_psnr"]
         for k in ("t1", "t75", "t150"):
             check(ok, f"rollout {k}", got["rollout_psnr"][k], ref["rollout_psnr"][k], S2_PSNR_DB)
-        for k in ("t75", "t150"):
-            above = got["rollout_psnr"][k] > floor_ref[k]["mean"]
-            ok.append(above)
-            print(f"  rollout {k} above the floor {floor_ref[k]['mean']:.4f}:"
-                  f" {'ok' if above else 'MISSED'}")
+        if name in FLOORED:
+            floor_ref = json.loads(FLOORED[name].read_text())["floor_psnr"]
+            for k in ("t75", "t150"):
+                above = got["rollout_psnr"][k] > floor_ref[k]["mean"]
+                ok.append(above)
+                print(f"  rollout {k} above the floor {floor_ref[k]['mean']:.4f}:"
+                      f" {'ok' if above else 'MISSED'}")
         for k in ("loss_first_seqit", "loss_last_seqit"):
             check(ok, k, got[k], ref[k], S2_LOSS_RTOL, rel=True)
         zero = got["binning"]["overflow_steps"] == 0
@@ -180,10 +217,12 @@ def stage2(card_dir: Path, ok: list) -> None:
               f" {c['staging_seconds']:.1f} s, rollout evaluations {c['eval_seconds']:.1f} s,"
               f" peak RSS {c['peak_rss_gb']:.2f} GiB")
     # Steps 1..T are sequence iteration 0.
-    first, worst, n = first_parting(windows(rows(cdir / "stage2_metrics.jsonl"), "total", t, 1),
-                                    windows(rows(tdir / "stage2_metrics.jsonl"), "total", t, 1))
-    print(f"  mean total per sequence iteration ({n}): first parting by > {WINDOW_RTOL:.0%}:"
-          f" {'none' if first is None else first}; largest {worst:.2%}")
+    clog, tlog = rows(cdir / "stage2_metrics.jsonl"), rows(tdir / "stage2_metrics.jsonl")
+    print(f"  resumed at: card {resumes(clog)}, TPU {resumes(tlog)} (a run stopped at a"
+          " checkpoint and resumed from it logs no step twice)")
+    report_windows("mean total per sequence iteration", windows(clog, "total", t, 1),
+                   windows(tlog, "total", t, 1), lambda w: f"sequence iteration {w}",
+                   resumes(tlog), first_step=1, size=t)
 
 
 def main(argv=None) -> int:
@@ -194,7 +233,8 @@ def main(argv=None) -> int:
     floor(args.card, ok)
     for name, tpu_name in STAGE1.items():
         stage1(args.card, name, tpu_name, ok)
-    stage2(args.card, ok)
+    for name, tpu_name in STAGE2.items():
+        stage2(args.card, name, tpu_name, ok)
     print(f"{sum(ok)} of {len(ok)} checks within their tolerances")
     return 0 if all(ok) else 1
 

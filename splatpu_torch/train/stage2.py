@@ -33,7 +33,8 @@ multiple of ``mesh_cameras`` (weight 0) and sharded over the camera ranks,
 with ``mesh_tiles > 1`` each view's rows over the tile ranks too; the
 network's gradients are summed over every rank, so every rank holds the
 same network.  Every rank runs ``train`` with the same arguments; only
-rank 0 logs and writes checkpoints.
+rank 0 logs and writes checkpoints.  Without ``mesh_cameras``,
+``mesh_tiles`` is ignored and one process trains, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -110,7 +111,8 @@ class Stage2Config:
     view_batching: str = "vmap"        # "vmap": one batched render; "map": one per view
     mesh_cameras: int = 0              # > 0: the views sharded over this many camera ranks
     mesh_tiles: int = 1                # > 1 (with mesh_cameras): also each view's rows
-                                       # over this many tile ranks, in the same step
+                                       # over this many tile ranks, in the same step;
+                                       # ignored without mesh_cameras
     steps_per_timestep: int = 1        # Adam steps per visited timestep
     timestep_order: str = "sequential"  # or "shuffled" per sequence iteration
     grow_budget_on_overflow: bool = True
@@ -530,8 +532,6 @@ def train(
         mesh = get_mesh(config.mesh_cameras, config.mesh_tiles)
         if mesh.rank != 0:
             logger = None
-    elif config.mesh_tiles > 1:
-        raise ValueError("mesh_tiles > 1 shards views over tile ranks: it needs mesh_cameras > 0")
     initial_cloud = compact_cloud(initial_cloud.to(device))
     v0 = views_by_timestep[0][0]
     width, height = v0.width, v0.height

@@ -2,9 +2,10 @@
 against the JAX package's (``scripts/acceptance_full.py``,
 ``scripts/floor_psnr.py``), on the CPU.
 
-- the committed truth (``runs/acceptance_truth/truth_n120000.npz``) equals
-  the JAX package's ``make_random_cloud`` draw bit for bit, and
-  ``scripts/export_acceptance_truth.py`` writes it again;
+- the committed truths (``runs/acceptance_truth/truth_n120000.npz``, and
+  ``truth_n250000.npz`` of BASELINE config 4) equal the JAX package's
+  ``make_random_cloud`` draw bit for bit, and
+  ``scripts/export_acceptance_truth.py`` writes them again;
 - the scene: the port's 27 rig cameras, its 40,000 initial-point picks and
   its moved means at t in {1, 75, 150} equal the JAX script's bit for bit
   (the script imported as ``floor_psnr.py`` imports it, its module constants
@@ -20,8 +21,9 @@ against the JAX package's (``scripts/acceptance_full.py``,
   bit for bit, on a one-camera rig (both packages' trainers draw a resumed
   run's views from ``default_rng(seed + start)``, so with several cameras a
   resumed run's view order differs from an unbroken run's by design);
-- the card's committed runs (``runs/torch_h100/``) pass every check of
-  ``tools/compare_runs.py`` against the TPU's.
+- each of the card's committed runs (``runs/torch_h100/``, config 4's
+  too) is present and passes every check of ``tools/compare_runs.py``
+  against the TPU's.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import splatpu.obs.cache as jcache
 from splatpu.data.synthetic import make_random_cloud
 from splatpu_torch.io.checkpoint import CLOUD_KEYS, load_cloud
 from splatpu_torch.tools import acceptance as tacc
+from splatpu_torch.tools import compare_runs
 from splatpu_torch.tools.train_scene import moved_means, rig_cameras, stage1_points
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -82,18 +85,25 @@ def small_args(truth, out, *extra):
             "--out", str(out), *extra]
 
 
-def test_committed_truth_is_the_jax_draw(tmp_path, jax_truth):
-    committed = np.load(tacc.TRUTH)
-    draw = make_random_cloud(jax.random.key(0), 120_000, extent=1.0, scale_range=(0.004, 0.02))
+@pytest.mark.parametrize("n", [120_000, 250_000])
+def test_committed_truth_is_the_jax_draw(tmp_path, monkeypatch, n):
+    """Configs 2 and 3 (120,000 Gaussians) and config 4 (250,000,
+    ``acceptance_full.py --truth-n 250000``)."""
+    path = ROOT / "runs" / "acceptance_truth" / f"truth_n{n}.npz"
+    committed = np.load(path)
+    draw = make_random_cloud(jax.random.key(0), n, extent=1.0, scale_range=(0.004, 0.02))
     out = tmp_path / "truth.npz"
-    export_acceptance_truth.main(["--out", str(out)])
+    monkeypatch.setattr(jacc, "TRUTH_N", jacc.TRUTH_N)  # the export sets it
+    export_acceptance_truth.main(["--truth-n", str(n), "--out", str(out)])
     exported = np.load(out)
-    assert jax_truth[0].means.shape[0] == 120_000
+    truth, _ = jacc.build_truth_and_cams(jax, np)
+    assert truth.means.shape[0] == n
     for k in CLOUD_KEYS:
         np.testing.assert_array_equal(committed[k], np.asarray(getattr(draw, k)))
         np.testing.assert_array_equal(exported[k], committed[k])
-        np.testing.assert_array_equal(np.asarray(getattr(jax_truth[0], k)), committed[k])
-    assert bool(load_cloud(tacc.TRUTH, device="cpu").alive.all())
+        np.testing.assert_array_equal(np.asarray(getattr(truth, k)), committed[k])
+    assert bool(load_cloud(path, device="cpu").alive.all())
+    assert (path == tacc.TRUTH) == (n == 120_000)
 
 
 def test_rig_points_and_motion_match_the_jax_script(jax_truth):
@@ -237,11 +247,20 @@ def test_stop_and_resume_end_where_an_unbroken_run_ends(tmp_path, small_scene, m
             == metric_rows(tmp_path / "whole2" / "stage2_metrics.jsonl", "total"))
 
 
-def test_committed_card_runs_are_within_their_tolerances(capsys):
-    """``runs/torch_h100/`` (the card's four runs) against the TPU's files:
-    every check of ``tools/compare_runs.py`` passes and none is missing."""
-    from splatpu_torch.tools import compare_runs
+CARD_RUNS = ["floor", *compare_runs.STAGE1, *compare_runs.STAGE2]
 
-    assert compare_runs.main([]) == 0
+
+@pytest.mark.parametrize("name", CARD_RUNS)
+def test_committed_card_runs_are_within_their_tolerances(capsys, name):
+    """``runs/torch_h100/<name>`` against the TPU's files: present, and
+    every check of ``tools/compare_runs.py`` on it passes."""
+    card, ok = ROOT / "runs" / "torch_h100", []
+    if name == "floor":
+        compare_runs.floor(card, ok)
+    elif name in compare_runs.STAGE1:
+        compare_runs.stage1(card, name, compare_runs.STAGE1[name], ok)
+    else:
+        compare_runs.stage2(card, name, compare_runs.STAGE2[name], ok)
     out = capsys.readouterr().out
-    assert "missing" not in out and "14 of 14 checks" in out
+    assert "missing" not in out and ok and all(ok), out
+    assert len(ok) == {"floor": 2, "s2_flagship": 8, "s2_config4": 6}.get(name, 2)

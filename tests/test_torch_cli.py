@@ -3,9 +3,10 @@
 - ``cli.train``'s parser has every option of the JAX package's
   (positionals, flags, defaults, choices, types) and one more,
   ``--device``; ``cli.render``'s likewise;
-- ``--mesh-tiles`` above 1 without ``--mesh-cameras`` is refused (the
-  JAX package ignores it; the distributed step is held in
-  test_torch_dist_train.py and test_torch_process.py);
+- ``--mesh-tiles`` above 1 without ``--mesh-cameras`` trains in one
+  process with the losses of the run without it, as the JAX package's
+  ignores it (the distributed step is held in test_torch_dist_train.py and
+  test_torch_process.py);
 - the JAX package's renderer names: ``resolve_impl`` takes "pallas" and
   "pallas_padded" as the exact and padded paths' CUDA kernels for CUDA
   tensors and their plain versions for CPU tensors; ``cli.densify``,
@@ -80,10 +81,26 @@ def test_parser_matches_jax(jax_main, port_parser, monkeypatch):
     assert got["device"][:2] == (("--device",), "cuda")
 
 
-def test_mesh_tiles_refused(tmp_path):
-    with pytest.raises(SystemExit):
-        ttrain.main(["seq", str(tmp_path), "1", "1", "0.001", "8", "1", "--device", "cpu",
-                     "--mesh-tiles", "2"])
+def test_mesh_tiles_refused(sequence, monkeypatch):
+    """No longer refused: ``--mesh-tiles 2`` without ``--mesh-cameras``
+    trains in this one process, as the JAX package's ``cli.train`` does,
+    and logs the losses of the same run without the flag."""
+    monkeypatch.setattr(tinference, "RENDER_WIDTH", 64)
+    monkeypatch.setattr(tinference, "RENDER_HEIGHT", 36)
+
+    def no_ranks(*a, **kw):
+        raise AssertionError("ranks started")
+
+    monkeypatch.setattr(ttrain, "main_on_ranks", no_ranks)
+
+    def losses(out, *extra):
+        ttrain.main(["seq", str(sequence), "1", "1", "0.001", "16", "1", "-t", "2", "-o",
+                     str(out), "--device", "cpu", "--renderer", "plain", *extra])
+        rows = (out / "seq" / "train_metrics.jsonl").read_text().splitlines()
+        return [r["total"] for r in map(json.loads, rows) if "total" in r]
+
+    tiled = losses(sequence / "tiled", "--mesh-tiles", "2")
+    assert len(tiled) == 2 and tiled == losses(sequence / "one")
 
 
 W, H, T, C = 32, 24, 3, 3

@@ -6,8 +6,8 @@
   network's under bfloat16, within 2e-2 of the outputs' largest magnitude
   (bfloat16 keeps 8 bits of mantissa, ~4e-3 relative per rounding, and the
   outputs pass through ~10 roundings); "auto" means float32 off a TPU;
-- a mesh that is not the process group's size refused, and ``mesh_tiles``
-  without ``mesh_cameras``;
+- a mesh that is not the process group's size refused; ``mesh_tiles``
+  without ``mesh_cameras`` builds no mesh;
 - ``psnr`` against the JAX package's; ``MetricsLogger`` fetches its
   buffered tensors in one batched copy (no ``.item()``) and writes the JAX
   logger's rows;
@@ -97,10 +97,11 @@ def test_compute_dtype_auto_is_float32_and_mesh_refused():
     assert ts2.Stage2Config().net_config().compute_dtype == "float32"
     assert ts2.Stage2Config(compute_dtype="bfloat16").net_config().compute_dtype == "bfloat16"
     # A mesh that is not the process group's size is refused (here: no
-    # group, one rank), as is a tile axis without a camera axis.
+    # group, one rank). A tile axis without a camera axis builds no mesh,
+    # as in JAX: the call goes on to the cloud (here None).
     with pytest.raises(ValueError, match="mesh 2x1 != 1 ranks"):
         ts2.train(None, [[None]], ts2.Stage2Config(mesh_cameras=2), device="cpu")
-    with pytest.raises(ValueError, match="needs mesh_cameras"):
+    with pytest.raises(AttributeError, match="'NoneType' object has no attribute 'to'"):
         ts2.train(None, [[None]], ts2.Stage2Config(mesh_tiles=2), device="cpu")
 
 

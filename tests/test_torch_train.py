@@ -10,6 +10,8 @@ state carried across from a JAX checkpoint.
 - resume: JAX trains 2 of 3 sequence iterations writing a checkpoint, then
   JAX and the port each resume from that file to the third, step for step;
   a checkpoint the port writes restores in JAX's ``load_checkpoint``;
+- ``mesh_tiles`` 2 without ``mesh_cameras`` trains on one device in both
+  packages, the port's bitwise as with ``mesh_tiles`` 1;
 - an ``on_iteration`` early stop; an unknown ``view_staging`` refused;
 - the Adam state of runs/config3_100k_r5/stage2_ckpt.msgpack read by the
   port (no flax) bit-exact against flax's reader, and one Adam step from
@@ -147,6 +149,40 @@ def test_train_matches_jax(order, staging, u8, k, extra):
     # they moved.
     assert_params_match(j_params, t_net, init)
     assert float(t_met["total"]) == pytest.approx(float(j_met["total"]), rel=1e-5)
+
+
+def test_mesh_tiles_alone_trains_on_one_device():
+    """``mesh_tiles`` 2 without ``mesh_cameras``: JAX's ``train`` builds
+    its single-device step (``splatpu/train/stage2.py:469``); the port's
+    trains in this process, matching JAX's and bitwise its own
+    ``mesh_tiles`` 1 run."""
+    cloud = np_cloud(11, 256)
+    j_views, t_views = both_views(views(12, False))
+    common = dict(total_iterations=2, warmup_iterations=1, hidden_dim=32, residual_blocks=2,
+                  views_per_step=2, timestep_count=2, overflow_check_every=1, seed=3)
+    jcfg = js2.Stage2Config(renderer="pallas", compute_dtype="float32", mesh_tiles=2, **common)
+    j_log = Recorder()
+    j_params, _, _, _ = js2.train(jax_cloud(cloud), j_views, jcfg, logger=j_log)
+    runs = []
+    for tiles in (2, 1):
+        net, init = port_net(jcfg)
+        log = Recorder()
+        t_net, *_ = ts2.train(torch_cloud(cloud), t_views,
+                              ts2.Stage2Config(renderer="plain", mesh_tiles=tiles, **common),
+                              logger=log, initial_net=net, device="cpu")
+        runs.append(([(step, {k: v for k, v in m.items() if k != "step_ms"})
+                      for step, m in log.rows], t_net.state_dict()))
+    assert_steps_match(j_log.rows, runs[0][0])
+    assert_params_match(j_params, net_of(runs[0][1]), init)
+    assert runs[0][0] == runs[1][0]
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k
+
+
+def net_of(state_dict) -> DeformationNet:
+    net = DeformationNet(net_config_for(state_dict))
+    net.load_state_dict(state_dict)
+    return net
 
 
 def test_resume_from_jax_checkpoint_matches_jax(tmp_path):
