@@ -10,11 +10,19 @@ Phases, each printed with its wall time and bounded by a watchdog:
 2. build: compile ``splatpu_torch/csrc/*.cu`` with nvcc, one process per
    source, all at once; print the registers of the kernels in
    ``PTXAS_NAMES`` and fail if one is missing.
-3. compare: the forward-composite kernel K1 against its plain PyTorch
+3. prng: ``core/prng.py``'s draws on the card against the same draws on
+   the CPU, bit for bit: ``split`` and ``random_bits`` of three keys,
+   ``uniform`` at the network's and a cloud's shapes and bounds,
+   ``normal`` at 500,224 x 3 (stage 1's config-4 capacity; its bitwise
+   share printed, 2 ulp at most), the config-3 network from ``key(0)``;
+   and ``make_random_cloud(key(0), 120000, ...)`` on the card against
+   ``runs/acceptance_truth/truth_n120000.npz`` (the uniform fields bit
+   for bit, quaternions and log scales 1e-6).
+4. compare: the forward-composite kernel K1 against its plain PyTorch
    version on the real 100,585-Gaussian cloud, five orbit cameras at
    320x180, one launch: image 2e-5, depth 2e-4, final T 2e-5, ``last``
    identical (as in every forward comparison below).
-4. compare_bwd: at 5 x 320x180 and 5 x 1280x720 (five cameras of the
+5. compare_bwd: at 5 x 320x180 and 5 x 1280x720 (five cameras of the
    training rig, the config-3 cloud at t = 0), on the cotangents of
    0.8 L1 + 0.2 (1 - SSIM) against the image shifted by a few pixels (plus
    small depth and final-T terms): the backward composite K2 against its
@@ -22,7 +30,7 @@ Phases, each printed with its wall time and bounded by a watchdog:
    routing, the whole ``CompositeTable`` backward "cuda" against "plain" on
    d(table), each scaled per row by the reference's largest value, 1e-4; and
    K2 + routing run twice, bitwise identical.
-5. compare_manual: K4 (``kernel="manual"``), forward and backward, against
+6. compare_manual: K4 (``kernel="manual"``), forward and backward, against
    its plain versions at 5 x 320x180 (orbit cameras) with 3 and with 9
    colour channels (the 9 from a seeded generator), the forward held as
    K1's; rows, the 16-row routing and the
@@ -31,12 +39,12 @@ Phases, each printed with its wall time and bounded by a watchdog:
    holds 2^24 + 2^20 slots, four tiles' segments placed above position
    2^24 and every other tile empty, against the plain versions handed the
    window of ``gid`` that holds those segments.
-6. compare_padded: K5 (the padded composite), forward and backward, against
+7. compare_padded: K5 (the padded composite), forward and backward, against
    its plain versions at 5 x 320x180 on padded pair streams built on the
    card at 16 px tiles, 3 and 9 channels, the same tolerances, the routing
    in its padded slot mode (the stream's ``q_of_slot``) and the
    ``CompositeG`` backward "cuda" against "plain".
-7. serve, serve_manual, serve_padded: ``run_inference`` at full width: the
+8. serve, serve_manual, serve_padded: ``run_inference`` at full width: the
    config-3 checkpoint's network (hidden 128, 3 blocks, head settings from
    its stage2_result.json), the real cloud, five 1280x720 orbit views per
    timestep; ``serve`` 150 timesteps plus t=0 through K1, the other two
@@ -44,7 +52,7 @@ Phases, each printed with its wall time and bounded by a watchdog:
    a 16 px budget measured at 16 px.  Every kernel count is zeroed just
    before ``run_inference`` and read just after; the path's forward kernel
    must have run at every render and no other composite at all.
-8. train, train_manual, train_padded: ``train`` at full width, cut in depth:
+9. train, train_manual, train_padded: ``train`` at full width, cut in depth:
    the real cloud, the checkpoint's network with a fresh Adam, the head
    settings of its result file, targets rendered on the card from the cloud
    moved as in the config-3 run (27 cameras, 1280x720, uint8),
@@ -56,11 +64,11 @@ Phases, each printed with its wall time and bounded by a watchdog:
    Every kernel count is zeroed just before ``train`` and read just after;
    each step must launch its path's forward, backward and the routing
    kernel once, and no other composite.
-9. measure, measure_manual, measure_padded: each forward kernel at the
+10. measure, measure_manual, measure_padded: each forward kernel at the
    served shapes (the t=0 frame's inputs) against its plain version, CUDA-
    event times of both, and the bound from this run's bytes and the work
    its data needs.
-10. measure_bwd, measure_manual, measure_padded: each forward kernel again
+11. measure_bwd, measure_manual, measure_padded: each forward kernel again
    at the training shapes (five 1280x720 rig views at the trainer's final
    budget) against its plain version, its time and bound there; each
    backward kernel (and the routing) at those shapes against its plain
@@ -72,7 +80,7 @@ Phases, each printed with its wall time and bounded by a watchdog:
    its plain version, with its time, the plain version's, one
    ``index_add_`` of the in-budget slots' rows by (view, gid) and its bound.
 
-11. bwd_tiles: at 5 x 320x180 with 8 and 24 px tiles (``NEW_BWD_TILES``):
+12. bwd_tiles: at 5 x 320x180 with 8 and 24 px tiles (``NEW_BWD_TILES``):
    K1 and K4's forward there against their plain versions (``last``
    identical), and K2 and K4's backward from that ``last``, held as in
    compare_bwd; then K2 at those tiles at the training shapes (five
@@ -80,7 +88,7 @@ Phases, each printed with its wall time and bounded by a watchdog:
    version, its time and its bound.  It runs after the measure phases so
    that the serve, train and measure phases follow the same work as before
    these tiles existed.
-12. train_options: ``train`` at full width, 2 timesteps, from the same
+13. train_options: ``train`` at full width, 2 timesteps, from the same
    start each time: ``view_batching="vmap"`` and ``"map"`` (five renders
    per step; its per-step losses within 1e-5 relative of vmap's) and
    ``compute_dtype="bfloat16"`` (finite losses), 1 iteration each; then
@@ -91,7 +99,7 @@ Phases, each printed with its wall time and bounded by a watchdog:
    iteration (the card synchronised at each iteration's end; staging,
    steps and logging included) is printed beside the steps' CUDA-event
    times; each run through K1, K2 and the routing only.
-13. cli: the command line end to end at full width.  BASELINE config 3 as
+14. cli: the command line end to end at full width.  BASELINE config 3 as
    a sequence on disk (the config-3 cloud as
    ``densified_initial_gaussian_cloud_parameters.npz``; 27 rig cameras x 3
    frames at 1280x720 rendered on the card, frame 0 unmoved, written as
@@ -106,14 +114,14 @@ Phases, each printed with its wall time and bounded by a watchdog:
    and the routing launched; prints ms per step and wall ms per iteration
    by staging mode, the checkpoint write, the sequence load and whether
    video was written.
-14. knn_native: 250,000 points from a seed through ``knn`` (which routes
+15. knn_native: 250,000 points from a seed through ``knn`` (which routes
    them to the native KD-tree), timed beside the port's own
    ``knn_bruteforce`` on the card, against brute force on the card: indices
    identical to a brute force in the tree's float32 arithmetic, squared
    distances within 1e-6 relative of float64's (near ties, where float32
    and float64 order two neighbours differently, are counted).
 
-15. stage1_step (stage 1 at BASELINE config 2: the 27 rig cameras at
+16. stage1_step (stage 1 at BASELINE config 2: the 27 rig cameras at
    1280x720, image and segmentation targets rendered on the card from the
    config-3 truth cloud, every third truth Gaussian as the 33,528 initial
    points, capacity factor 6.0 -> 201,216 slots): one stage-1 iteration
@@ -129,7 +137,7 @@ Phases, each printed with its wall time and bounded by a watchdog:
    run's signs (``L1Signs``: rounding flips sign(x - target) on pixels
    whose residual is near 0; the flips and the gradients with them left
    in are printed).
-16. stage1: ``fit`` at config 2 with the reference schedule for
+17. stage1: ``fit`` at config 2 with the reference schedule for
    S1_ITERATIONS iterations (a depth cut from 30,000; it crosses the
    mutations at 500 and 600): ms per iteration (CUDA events between
    iteration ends, and the host clock; medians of the non-mutation
@@ -139,7 +147,7 @@ Phases, each printed with its wall time and bounded by a watchdog:
    and every iteration launched K1, K2 and the routing twice.  Then K1
    and K2 at the stage-1 shape (one view, the fitted cloud of 201,216
    slots) against their plain versions, timed, with their bounds.
-17. stage1_options: a scaled schedule (mutations every 10 from 10, opacity
+18. stage1_options: a scaled schedule (mutations every 10 from 10, opacity
    reset and big prune from 20, the window and its final prune at 40, past
    the last iteration, so the resumed clouds stay alive), 4 views per step,
    the pair budget a quarter of the initial cloud's demand with an
@@ -149,7 +157,7 @@ Phases, each printed with its wall time and bounded by a watchdog:
    iterations each with
    ``kernel="manual"`` (K4) and ``renderer="cuda_padded"`` at 16 px (K5),
    each launching only its own kernels.
-18. cli_densify: the config-2 scene written as a sequence (one frame of 27
+19. cli_densify: the config-2 scene written as a sequence (one frame of 27
    JPEG views, PNG masks, ``init_pt_cld.npz``); ``cli.densify`` for
    S1_CLI_ITERATIONS[0] iterations with a checkpoint every 10, then resumed
    to S1_CLI_ITERATIONS[1]; the metrics rows, the written cloud (read by
@@ -163,7 +171,7 @@ path, read just after) and sends them back.  These phases show that the
 sharded paths run and agree with the single-process run, not that they
 scale: every rank computes on the same card.
 
-19. dist_render: the config-3 cloud and one 1280x720 orbit view cut into
+20. dist_render: the config-3 cloud and one 1280x720 orbit view cut into
    DIST_STRIPS strips, one per rank, through K1
    (``make_tile_sharded_render``), the strips gathered into the whole
    image on every rank: each strip, and the gathered image, within 2e-5
@@ -171,7 +179,7 @@ scale: every rank computes on the same card.
    changing no value, K1 once per rank; prints each rank's rows' error and
    how many of its pixels name another last contributor (a Gaussian id)
    than the whole render.
-20. dist_train: config 3 at full width (the real cloud, the checkpoint's
+21. dist_train: config 3 at full width (the real cloud, the checkpoint's
    network and head settings with a fresh Adam, 27 rig views at 1280x720
    as uint8, five per step padded to six), 2 timesteps x 2 iterations with
    ``mesh_cameras=2`` over 2 ranks, against the single-process ``train``
@@ -179,10 +187,10 @@ scale: every rank computes on the same card.
    1e-5 relative, the final parameters within 2e-2 of how far they moved,
    both ranks' parameters bitwise equal, two sharded runs bitwise equal,
    K1, K2 and the routing once per step in each rank; ms per step of both.
-21. dist_2d: the same on the 2 x 2 grid (4 ranks: ``mesh_cameras=2``,
+22. dist_2d: the same on the 2 x 2 grid (4 ranks: ``mesh_cameras=2``,
    ``mesh_tiles=2``), 2 timesteps x 2 iterations (the depth of the JAX
    package's test of this step).
-22. dist_stage1: config 2 at full width with ``mesh_tiles=2`` (2 ranks)
+23. dist_stage1: config 2 at full width with ``mesh_tiles=2`` (2 ranks)
    for DIST_S1_ITERATIONS iterations (the JAX package's test's), a
    mutation (clones) at 2 and a budget of four times the initial cloud's
    demand, against the
@@ -191,13 +199,13 @@ scale: every rank computes on the same card.
    opacity logits within rtol 1e-4 and atol 1e-6 (the JAX package's gate),
    both ranks' clouds bitwise equal, K1, K2 and the routing twice per
    iteration in each rank.
-23. train_batch: two config-3 sequences written as the ``cli`` phase
+24. train_batch: two config-3 sequences written as the ``cli`` phase
    writes one (frames 0-2 and 5-7 of the motion) trained by
    ``cli.train_batch`` over 2 processes (ranks), one sequence each, 2
    iterations x 2 timesteps; each sequence's network bitwise equal to that
    of an independent ``cli.train`` run of it.
 
-24. acceptance: the acceptance scene of the JAX package
+25. acceptance: the acceptance scene of the JAX package
    (``runs/acceptance_truth/truth_n120000.npz``, 27 rig cameras at
    1280x720) through ``splatpu_torch.tools.acceptance``: ``floor`` of
    ``runs/s1_ceiling_r4b/densified_cloud.npz``, every per-camera PSNR
@@ -214,7 +222,7 @@ scale: every rank computes on the same card.
    and max_span 64 at 100); it fails unless the mean ``total_loss`` of the
    iterations is within ACCEPT_LOSS_RTOL of the TPU log's.
 
-25. acceptance_config4: BASELINE config 4, the JAX package's
+26. acceptance_config4: BASELINE config 4, the JAX package's
    250,000-Gaussian truth (``runs/acceptance_truth/truth_n250000.npz``)
    at the same rig, through the same tool.  ``stage1`` for
    ACCEPT4_ITERATIONS iterations from its 83,333 points at the TPU run's
@@ -228,10 +236,12 @@ scale: every rank computes on the same card.
    ``runs/config4_250k``'s settings (the faithful quirk head, host
    staging) for ACCEPT4_STAGE2 sequence iterations x timesteps at its
    demand-sized budget: every step logged, no overflow, K2 and the routing
-   once per step; and the same steps from the same seeded network in this
-   process and over 2 camera ranks (gloo, the one card) under dist_train's
-   gates, the single-process losses within 1e-5 of the tool's.  Shows that
-   config 4's camera sharding runs and agrees, not that it scales.
+   once per step (the first step's loss printed beside the TPU's: both
+   from the JAX package's network draw of ``key(seed)``); and the same
+   steps from the same network in this process and over 2 camera ranks
+   (gloo, the one card) under dist_train's gates, the single-process
+   losses within 1e-5 of the tool's.  Shows that config 4's camera
+   sharding runs and agrees, not that it scales.
 
 Prints one ``{"kernels": [...]}`` JSON line (the routing once per slot
 mode, each with the launches of its paths; the forwards also with their
@@ -304,6 +314,8 @@ ACCEPT4_ITERATIONS = 20     # acceptance_config4: stage-1 iterations (config 4: 
 ACCEPT4_PRUNE = 0.05        # the TPU run's final prune
 ACCEPT4_STAGE2 = (2, 2)     # acceptance_config4: sequence iterations x timesteps (30 x 150)
 ACCEPT_FIRST_LOSS_RTOL = 1e-4  # the first stage-1 loss against the JAX package's on a CPU
+ACCEPT4_CAPACITY = 500_224  # stage 1's slots on the config-4 truth: the split noise's rows
+PRNG_SEEDS = (0, 7, 2**31)  # prng: the keys drawn on the card and on the CPU
 DIST_TIMEOUT_S = 240       # every launch of ranks: its result within this, or it fails
 DIST_RENDERER = "cuda"     # the distributed phases' render path
 BIG_P = (1 << 24) + (1 << 20)  # gid slots of K4's large-budget call
@@ -2151,6 +2163,85 @@ def check_stage1_launches(where: str, launched: list, counts: dict) -> None:
     check_only(counts, expected, where)
 
 
+def ulps(a, b):
+    """|a - b| in float32 units in the last place, elementwise (int64)."""
+    import torch
+
+    def ordered(x):
+        i = x.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return (ordered(a.cpu()) - ordered(b.cpu())).abs()
+
+
+def prng_check(dev):
+    """prng (module docstring)."""
+    import numpy as np
+    import torch
+
+    from splatpu_torch.core import prng
+    from splatpu_torch.data.synthetic import make_random_cloud
+    from splatpu_torch.dynamics.network import DeformationNetConfig, init_deformation_net
+
+    bound = lambda f: float(np.float32(1.0) / np.sqrt(np.float32(f)))  # noqa: E731
+    uniform_cases = (((192, 128), -bound(192), bound(192)), ((128, 128), -bound(128), bound(128)),
+                     ((1000, 3), 0.004, 0.02), ((1000, 3), -1.0, 1.0))
+    for seed in PRNG_SEEDS:
+        k = prng.key(seed)
+        for num in (2, 6, 8):  # split's hash of its counters 0..num-1, on the card
+            flat = torch.arange(num, device=dev)
+            got = torch.stack(prng.threefry2x32(tuple(int(w) for w in k), flat >> 32,
+                                                flat & 0xFFFFFFFF), -1)
+            if not np.array_equal(got.cpu().numpy(), prng.split(k, num)):
+                fail(f"prng: split(key({seed}), {num}) on the card differs from the CPU's")
+        for shape in ((1000,), (1000, 3), (64, 128)):
+            if not torch.equal(prng.random_bits(k, shape, dev).cpu(),
+                               prng.random_bits(k, shape, "cpu")):
+                fail(f"prng: random_bits(key({seed}), {shape}) differs on the card")
+        for shape, lo, hi in uniform_cases:
+            d = ulps(prng.uniform(k, shape, lo, hi, dev), prng.uniform(k, shape, lo, hi, "cpu"))
+            if d.max() > 0:
+                fail(f"prng: uniform(key({seed}), {shape}, {lo}, {hi}) on the card: largest"
+                     f" {int(d.max())} ulp, bitwise share {float((d == 0).double().mean()):.6f}")
+    shape = (ACCEPT4_CAPACITY, 3)
+    k = prng.key(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = prng.normal(k, shape, dev)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = prng.normal(k, shape, "cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    d = ulps(got, want)
+    share = float((d == 0).double().mean())
+    print(f"  split, random_bits and uniform on the card bitwise the CPU's (seeds {PRNG_SEEDS});"
+          f" normal {shape}: largest {int(d.max())} ulp, bitwise share {share:.6f}; {card_ms:.2f}"
+          f" ms on the card (host clock, synchronised), {cpu_ms:.1f} ms on the CPU", flush=True)
+    if d.max() > 2:
+        fail(f"prng: normal on the card {int(d.max())} ulp from the CPU's")
+    cfg = DeformationNetConfig(hidden_dim=128, residual_blocks=3)
+    card_net = init_deformation_net(k, cfg, device=dev).state_dict()
+    for name, p in init_deformation_net(k, cfg, device="cpu").state_dict().items():
+        if not torch.equal(card_net[name].cpu(), p):
+            fail(f"prng: the fresh network's {name} drawn on the card differs from the CPU's")
+    truth = np.load(ACCEPT_TRUTH)
+    n = truth["means"].shape[0]
+    cloud = make_random_cloud(k, n, extent=1.0, scale_range=(0.004, 0.02), device=dev)
+    worst = {}
+    for f in ("means", "colors", "segmentation_masks", "opacity_logits",
+              "rotation_quaternions", "log_scales"):
+        got = getattr(cloud, f).cpu().numpy()
+        worst[f] = float(np.abs(got - truth[f]).max())
+        limit = 1e-6 if f in ("rotation_quaternions", "log_scales") else 0.0
+        if not worst[f] <= limit:
+            fail(f"prng: make_random_cloud(key(0), {n}) {f} {worst[f]:.3e} from"
+                 f" {ACCEPT_TRUTH.name}'s (limit {limit})")
+    print(f"  the config-3 network drawn on the card bitwise the CPU's; make_random_cloud(key(0),"
+          f" {n}) on the card against {ACCEPT_TRUTH.name}: largest |d| "
+          + ", ".join(f"{f} {v:.2e}" for f, v in worst.items()), flush=True)
+
+
 def acceptance_path(dev):
     """acceptance (module docstring): the fit's launch counts."""
     import tempfile
@@ -2222,6 +2313,7 @@ def acceptance_config4_path(dev, card):
     import numpy as np
     import torch
 
+    from splatpu_torch.core import prng
     from splatpu_torch.dynamics.network import init_deformation_net
     from splatpu_torch.tools import acceptance
     from splatpu_torch.train.stage2 import Stage2Config
@@ -2290,8 +2382,10 @@ def acceptance_config4_path(dev, card):
         print(f"  step {r['step']}: loss {r['total']:.6f} (l1 {r['l1']:.5f} ssim"
               f" {r['ssim']:.5f} rig {r['rigidity']:.3e}) lr {r['learning_rate']:.4e}"
               f" {r['step_ms']:.2f} ms", flush=True)
-    print(f"  the TPU's first steps (150 timesteps, its own network draw): losses"
-          f" {fmt(ref['stage2']['total'])}", flush=True)
+    tpu_first = ref["stage2"]["total"][0]
+    print(f"  the TPU's first steps (150 timesteps, the same network draw): losses"
+          f" {fmt(ref['stage2']['total'])}; step 1"
+          f" {abs(steps[0]['total'] - tpu_first) / tpu_first:.2%} from the port's", flush=True)
     if got["reference_run"] != "runs/config4_250k" or not got["head"]["quirk_compat"]:
         fail(f"acceptance_config4: stage2 took {got['reference_run']}'s head {got['head']}")
     if [r["step"] for r in steps] != list(range(1, n_steps + 1)) or not got["completed"]:
@@ -2316,11 +2410,10 @@ def acceptance_config4_path(dev, card):
     del scene, imgs
     cfg = Stage2Config(total_iterations=iters, warmup_iterations=max(1, iters // 10),
                        timestep_count=timesteps, renderer=DIST_RENDERER, **settings["config"])
-    net = init_deformation_net(cfg.net_config(), torch.Generator().manual_seed(cfg.seed),
-                               device="cpu")
+    net = init_deformation_net(prng.key(cfg.seed), cfg.net_config(), device="cpu")
     init = {k: v.numpy() for k, v in net.state_dict().items()}
     print(f"  2 camera ranks: the same {iters} x {timesteps} steps, 5 of 27 views per step"
-          " (padded to 6), the seeded network the tool drew", flush=True)
+          " (padded to 6), the network the tool drew from key(seed)", flush=True)
     total, single = hold_sharded("acceptance_config4", ACCEPT4_TRUTH, views, cfg, init, 2, 1,
                                  card)
     worst = max(abs(b["total"] - a["total"]) / abs(a["total"])
@@ -2398,6 +2491,9 @@ def main() -> int:
             fail(f"nvcc's log names no register count for {missing}")
         if re.search(r"[1-9]\d* bytes spill", _build.build_log):
             print("  (some instances spill: see the log's spill lines)", flush=True)
+
+    with phase("prng", 10):
+        prng_check(dev)
 
     with phase("compare", 180):
         cloud = compact_cloud(load_cloud(CLOUD, device=dev))

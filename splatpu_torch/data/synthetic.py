@@ -1,10 +1,11 @@
 """Procedural scenes: random Gaussian clouds and look-at cameras (port of
 ``splatpu/data/synthetic.py``).
 
-``make_random_cloud`` draws the JAX package's distributions from
-``numpy.random.default_rng(seed)``: the numbers differ from the JAX
-package's ``jax.random`` draws, so tests that hold the two packages
-against each other hand both the same numpy arrays.
+``make_random_cloud`` draws from a threefry key through ``core/prng.py``,
+as the JAX package's draws from ``jax.random``: the same key gives the
+same cloud (the uniform fields to the bit, the normalised quaternions and
+the log scales to float32 rounding), so the acceptance truth and the
+bench cloud need no export.
 """
 
 from __future__ import annotations
@@ -12,36 +13,32 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from splatpu_torch.core import prng
 from splatpu_torch.core.types import Camera, GaussianCloud, cloud_from_arrays
 
 
-def random_cloud_arrays(seed: int, n: int, center=(0.0, 0.0, 0.0), extent: float = 1.0,
-                        scale_range=(0.02, 0.08), fg_fraction: float = 0.7) -> dict:
-    """The raw (N, .) float32 arrays of a random cloud: means uniform in the
-    cube of half side ``extent`` around ``center``, colours uniform, unit
-    quaternions from normals, opacity logits uniform in [-1, 3], log of
-    scales uniform in ``scale_range``, foreground with probability
-    ``fg_fraction`` (segmentation (fg, 0, bg))."""
-    rng = np.random.default_rng(seed)
-    means = rng.uniform(-extent, extent, (n, 3)) + np.asarray(center)
-    colors = rng.uniform(0.0, 1.0, (n, 3))
-    quats = rng.normal(size=(n, 4))
-    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
-    opacity_logits = rng.uniform(-1.0, 3.0, (n, 1))
-    log_scales = np.log(rng.uniform(scale_range[0], scale_range[1], (n, 3)))
-    fg = (rng.uniform(size=n) < fg_fraction).astype(np.float64)
-    seg = np.stack([fg, np.zeros_like(fg), 1.0 - fg], axis=-1)
-    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
-    return dict(means=f32(means), colors=f32(colors), segmentation_masks=f32(seg),
-                rotation_quaternions=f32(quats), opacity_logits=f32(opacity_logits),
-                log_scales=f32(log_scales))
-
-
-def make_random_cloud(seed: int, n: int, capacity: int | None = None, device="cuda",
-                      **kw) -> GaussianCloud:
-    """``random_cloud_arrays(seed, n, **kw)`` as a cloud of ``capacity`` rows."""
-    return cloud_from_arrays(**random_cloud_arrays(seed, n, **kw), capacity=capacity,
-                             device=device)
+def make_random_cloud(key, n: int, capacity: int | None = None, center=(0.0, 0.0, 0.0),
+                      extent: float = 1.0, scale_range=(0.02, 0.08), fg_fraction: float = 0.7,
+                      device="cuda") -> GaussianCloud:
+    """A cloud of ``n`` random Gaussians in ``capacity`` rows: ``key``
+    split in six, then means uniform in the cube of half side ``extent``
+    around ``center``, colours uniform, unit quaternions from normals,
+    opacity logits uniform in [-1, 3), the log of scales uniform in
+    ``scale_range``, foreground with probability ``fg_fraction``
+    (segmentation (fg, 0, bg))."""
+    ks = prng.split(key, 6)
+    means = prng.uniform(ks[0], (n, 3), -extent, extent, device)
+    means = means + torch.tensor(center, dtype=torch.float32, device=device)
+    colors = prng.uniform(ks[1], (n, 3), device=device)
+    quats = prng.normal(ks[2], (n, 4), device)
+    quats = quats / torch.linalg.norm(quats, dim=-1, keepdim=True)
+    opacity_logits = prng.uniform(ks[3], (n, 1), -1.0, 3.0, device)
+    log_scales = torch.log(prng.uniform(ks[4], (n, 3), scale_range[0], scale_range[1], device))
+    fg = (prng.uniform(ks[5], (n,), device=device) < fg_fraction).float()
+    seg = torch.stack([fg, torch.zeros_like(fg), 1.0 - fg], dim=-1)
+    return cloud_from_arrays(means=means, colors=colors, segmentation_masks=seg,
+                             rotation_quaternions=quats, opacity_logits=opacity_logits,
+                             log_scales=log_scales, capacity=capacity, device=device)
 
 
 def lookat_matrices(eye=(0.0, 0.0, -4.0), target=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0),

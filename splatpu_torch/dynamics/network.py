@@ -29,9 +29,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from splatpu_torch.core import prng
 
 BN_EPS = 1e-5
 INPUT_DIM = 192
@@ -137,30 +140,38 @@ class DeformationNet(nn.Module):
         return out
 
 
+def _linear_init(fc: nn.Linear, k) -> None:
+    """The JAX package's ``_linear_init``: ``k`` split into the weight's
+    and the bias's keys, each U(+-1/sqrt(fan_in)) with the bound computed
+    in float32; the weight drawn as (fan_in, fan_out) and transposed."""
+    bound = float(np.float32(1.0) / np.sqrt(np.float32(fc.in_features)))
+    wk, bk = prng.split(k)
+    dev = fc.weight.device
+    fc.weight.copy_(prng.uniform(wk, (fc.in_features, fc.out_features), -bound, bound, dev).T)
+    if fc.bias is not None:
+        fc.bias.copy_(prng.uniform(bk, (fc.out_features,), -bound, bound, dev))
+
+
 def init_deformation_net(
+    key,
     config: DeformationNetConfig = DeformationNetConfig(),
-    generator: torch.Generator | None = None,
     device="cuda",
 ) -> DeformationNet:
-    """A fresh network with torch's default Linear init, U(+-1/sqrt(fan_in))
-    for weights and biases, drawn from ``generator`` (on the CPU, then moved
-    to ``device``); BatchNorm scale 1 and shift 0; ``fc_out`` zero under
-    ``zero_init_head``.  The JAX package draws the same distribution from
-    ``jax.random``; the numbers differ, so parity tests carry parameters
-    across with ``state_dict_from_jax``."""
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    net = DeformationNet(config)
-    linears = [net.fc_in, net.fc_out] + [fc for b in net.blocks for fc in (b.fc1, b.fc2)]
+    """A fresh network drawn from ``key`` (``core.prng``) as the JAX
+    package's ``init_deformation_net`` draws it, to its bits: ``key`` split
+    into 2 + 2 x blocks keys, ``fc_in`` from the first, ``fc_out`` from the
+    second (left zero under ``zero_init_head``), block ``r``'s ``fc1`` and
+    ``fc2`` from keys 2 + 2r and 3 + 2r; BatchNorm scale 1 and shift 0."""
+    net = DeformationNet(config).to(device)
+    keys = prng.split(key, 2 + 2 * config.residual_blocks)
     with torch.no_grad():
-        for fc in linears:
-            if fc is net.fc_out and config.zero_init_head:
-                continue
-            bound = 1.0 / fc.in_features**0.5
-            for p in (fc.weight, fc.bias):
-                if p is not None:
-                    p.copy_((torch.rand(p.shape, generator=generator) * 2.0 - 1.0) * bound)
-    return net.to(device)
+        _linear_init(net.fc_in, keys[0])
+        if not config.zero_init_head:
+            _linear_init(net.fc_out, keys[1])
+        for r, blk in enumerate(net.blocks):
+            _linear_init(blk.fc1, keys[2 + 2 * r])
+            _linear_init(blk.fc2, keys[3 + 2 * r])
+    return net
 
 
 def net_params_to_jax_tree(net_or_state) -> dict:
@@ -199,8 +210,6 @@ def state_dict_from_jax(params) -> dict[str, torch.Tensor]:
     (out, in), so weights are transposed.  ``blocks`` may be a list (a live
     pytree) or a dict keyed "0", "1", ... (as flax msgpack stores lists).
     """
-    import numpy as np
-
     def t(x):
         return torch.from_numpy(np.array(x, dtype=np.float32))
 

@@ -12,9 +12,9 @@ iteration), and from iteration 3000 a world-space scale above 0.1 x the
 scene radius.  The statistics are reset to zero after each mutation.
 
 The split noise is an argument: ``densify_and_prune`` takes the two
-(CAP, 3) standard-normal draws that the JAX package draws from its key, so
-the caller decides where they come from (``train/stage1.py`` draws them
-from a ``torch.Generator``; the tests hand in JAX's draws).
+(CAP, 3) standard-normal draws that the JAX package draws from its key;
+``train/stage1.py``'s ``split_normals`` draws the same numbers from the
+same key through ``core/prng.py``.
 """
 
 from __future__ import annotations

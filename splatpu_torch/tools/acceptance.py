@@ -20,7 +20,9 @@ The scene is the JAX scripts' (``acceptance_full.py:33-53``): the truth
 cloud is read from ``runs/acceptance_truth/truth_n120000.npz`` (BASELINE
 configs 2 and 3) or ``truth_n250000.npz`` (config 4, ``--truth-n 250000``
 there), which ``scripts/export_acceptance_truth.py`` writes from the JAX
-package's threefry draw (the port cannot draw it); the rig is
+package's threefry draw (``data.synthetic.make_random_cloud(prng.key(0),
+n, extent=1.0, scale_range=(0.004, 0.02))`` draws the same cloud); the
+rig is
 ``train_scene.rig_cameras`` (27 look-at cameras at 1280x720), the motion
 ``train_scene.moved_means`` with the flagship's rot_rate 0.003 and bob_amp
 0.1.  Every target

@@ -21,7 +21,14 @@ Card runs, under ``--card``:
   above the floor at t75 and t150);
 - BASELINE config 4, the 250,000-Gaussian truth: ``s1_config4_15000/``
   against ``runs/config4_s1/`` and ``s2_config4/`` against
+  ``runs/config4_250k/``;
+- the same runs again with the JAX package's random draws (threefry, the
+  network and the split noise): ``s1_8000_threefry/`` against
+  ``runs/s1_ceiling_r4b/`` and ``s2_config4_threefry/`` against
   ``runs/config4_250k/``.
+
+Stage 2's first step is printed beside the TPU's (it follows from the
+initial network alone).
 
 A run missing on the card side is reported as missing.  Exits 1 if a
 present run misses a tolerance.
@@ -45,8 +52,9 @@ S2_PSNR_DB = 1.0
 S2_LOSS_RTOL = 0.05
 FLOOR_CPU = ROOT / "runs" / "acceptance_truth" / "floor_jax_cpu.json"
 STAGE1 = {"s1_8000": "s1_ceiling_r4b", "s1_30000": "acceptance_s1",
-          "s1_config4_15000": "config4_s1"}
-STAGE2 = {"s2_flagship": "config3_100k_r5", "s2_config4": "config4_250k"}
+          "s1_config4_15000": "config4_s1", "s1_8000_threefry": "s1_ceiling_r4b"}
+STAGE2 = {"s2_flagship": "config3_100k_r5", "s2_config4": "config4_250k",
+          "s2_config4_threefry": "config4_250k"}
 FLOORED = {"s2_flagship": ROOT / "runs" / "floor_100k.json"}  # the floor of its scene
 
 
@@ -218,6 +226,9 @@ def stage2(card_dir: Path, name: str, tpu_name: str, ok: list) -> None:
               f" peak RSS {c['peak_rss_gb']:.2f} GiB")
     # Steps 1..T are sequence iteration 0.
     clog, tlog = rows(cdir / "stage2_metrics.jsonl"), rows(tdir / "stage2_metrics.jsonl")
+    c1, t1 = (next(r["total"] for r in log if r.get("step") == 1 and "total" in r)
+              for log in (clog, tlog))
+    print(f"  first step: card {c1:.5f}, TPU {t1:.5f}, relative {abs(c1 - t1) / abs(t1):.2%}")
     print(f"  resumed at: card {resumes(clog)}, TPU {resumes(tlog)} (a run stopped at a"
           " checkpoint and resumed from it logs no step twice)")
     report_windows("mean total per sequence iteration", windows(clog, "total", t, 1),

@@ -19,12 +19,13 @@ accumulated, so one V-view step advances the statistics as V reference
 iterations would.
 
 The view order is the JAX package's: ``numpy.random.default_rng(seed)``
-permutation buffers, reseeded at ``seed + start`` on resume.  The split
-noise is not: the JAX package draws it from its threefry key, which the
-port does not reproduce; it draws the two (CAP, 3) normals from a
-``torch.Generator`` on the run's device seeded from the checkpointed key
-words and the iteration (``split_normals``), so that a resumed run draws
-what the uninterrupted one drew.  The key itself is carried unchanged.
+permutation buffers, reseeded at ``seed + start`` on resume.  So is the
+split noise: the run starts from ``prng.key(seed)``, each mutation takes
+``key, sub = prng.split(key)``, and ``split_normals(sub)`` draws the two
+(CAP, 3) normals from ``sub`` on the run's device, as the JAX package's
+``jax.random`` does (``core/prng.py``).  The checkpoint carries the key, so
+a resumed run of either package splits with the key the uninterrupted run
+had.
 
 Each iteration is a ``torch.profiler`` range ``stage1_iteration`` with the
 ranges ``render``, ``loss``, ``backward`` and ``adam`` (or ``densify``)
@@ -52,6 +53,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from splatpu_torch.core import prng
 from splatpu_torch.core.types import Camera, GaussianCloud, activate_cloud, cloud_from_arrays
 from splatpu_torch.growth.densify import (
     DensifyConfig,
@@ -122,13 +124,13 @@ def initialize_cloud(point_cloud: np.ndarray, capacity: int, device="cuda") -> G
     )
 
 
-def split_normals(key, i: int, capacity: int, device):
-    """The split jitter's two (CAP, 3) standard-normal draws at mutation
-    ``i``, from a generator on ``device`` seeded by the key words and ``i``."""
-    k0, k1 = (int(x) for x in np.asarray(key, np.uint32))
-    gen = torch.Generator(device=device)
-    gen.manual_seed((((k0 << 32) | k1) * 1_000_003 + i) % (1 << 63))
-    return tuple(torch.randn((capacity, 3), generator=gen, device=device) for _ in range(2))
+def split_normals(sub, capacity: int, device):
+    """The split jitter's two (CAP, 3) standard-normal draws from a
+    mutation's subkey ``sub``: ``k1, k2 = split(sub)``, then
+    ``normal(k1)`` and ``normal(k2)``, as ``densify_and_prune`` in the JAX
+    package draws them."""
+    k1, k2 = prng.split(sub)
+    return prng.normal(k1, (capacity, 3), device), prng.normal(k2, (capacity, 3), device)
 
 
 @dataclasses.dataclass
@@ -233,14 +235,14 @@ class Stage1Steps:
         metrics["n_alive"] = cloud.n_alive()
         return cloud, stats, metrics
 
-    def mutate_step(self, cloud, stats, pick, binning, i: int, key):
+    def mutate_step(self, cloud, stats, pick, binning, i: int, sub):
         """A mutation iteration: the statistics accumulated, then clone,
-        split and prune (and the opacity reset on its schedule); no Adam
-        update."""
+        split (its noise drawn from the subkey ``sub``) and prune (and the
+        opacity reset on its schedule); no Adam update."""
         _, stats, metrics = self._compute(cloud, stats, pick, binning, False)
         dcfg = self.config.densify
         with torch.no_grad(), record_function("densify"):
-            normals = split_normals(key, i, cloud.capacity, cloud.alive.device)
+            normals = split_normals(sub, cloud.capacity, cloud.alive.device)
             cloud, _, stats, info = densify_and_prune(
                 cloud, self.adam, stats, normals, i, self.scene_radius, dcfg)
             if dcfg.is_opacity_reset_iter(i):
@@ -310,7 +312,7 @@ def fit(
                         mesh)
 
     rng = np.random.default_rng(config.seed)
-    key = np.array([0, config.seed & 0xFFFFFFFF], np.uint32)  # jax.random.PRNGKey(seed)
+    key = prng.key(config.seed)
     start_iter = 0
     growths = 0
     if resume_from is not None:
@@ -378,7 +380,8 @@ def fit(
                             "max_span": binning.max_span}, step=i)
         with record_function("stage1_iteration"):
             if dcfg.is_mutation_iter(i):
-                cloud, stats, metrics = steps.mutate_step(cloud, stats, pick, binning, i, key)
+                key, sub = prng.split(key)
+                cloud, stats, metrics = steps.mutate_step(cloud, stats, pick, binning, i, sub)
             else:
                 cloud, stats, metrics = steps.train_step(cloud, stats, pick, binning, i)
         if logger is not None:

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from splatpu_torch.core import prng
 from splatpu_torch.core.ssim import ssim
 from splatpu_torch.core.types import Camera, GaussianCloud, activate_cloud
 from splatpu_torch.dynamics.deform import (
@@ -166,7 +167,8 @@ def setup(initial_cloud: GaussianCloud, config: Stage2Config, initial_net=None,
           device="cuda") -> Stage2Setup:
     """Compaction, foreground indices, the neighbour graph, the initial
     encoding, the network (``initial_net``, moved to ``device`` and trained
-    in place, or a fresh one seeded by ``config.seed``) and its optimizer."""
+    in place, or a fresh one drawn from ``prng.key(config.seed)`` as the
+    JAX package draws it) and its optimizer."""
     cloud = compact_cloud(initial_cloud.to(device))
     fg_idx = torch.nonzero(cloud.segmentation_masks[:, 0] > 0.5, as_tuple=True)[0]
     neighbor_info = build_neighbor_info(cloud.means[fg_idx])
@@ -174,8 +176,7 @@ def setup(initial_cloud: GaussianCloud, config: Stage2Config, initial_net=None,
         cloud.means, cloud.rotation_quaternions, quirk_compat=config.quirk_compat
     )
     if initial_net is None:
-        gen = torch.Generator().manual_seed(config.seed)
-        net = init_deformation_net(config.net_config(), gen, device=device)
+        net = init_deformation_net(prng.key(config.seed), config.net_config(), device=device)
     else:
         # The weights are the caller's; the compute dtype is the run's.
         net = initial_net.to(device)
@@ -497,8 +498,8 @@ def train(
 
     Returns ``(net, cloud, encoded_initial, metrics)`` like the JAX
     package's ``(net_params, cloud, encoded_initial, metrics)``; ``metrics``
-    are the last step's.  ``initial_net`` (default: a fresh network seeded
-    by ``config.seed``) is trained in place and returned.  ``logger`` (an
+    are the last step's.  ``initial_net`` (default: the JAX package's
+    fresh network from ``key(config.seed)``) is trained in place and returned.  ``logger`` (an
     object with ``log(metrics, step)`` and ``flush()``) gets every step's
     metrics plus ``learning_rate`` (the schedule at the update count the
     step used), ``max_pairs`` (the budget) and ``step_ms`` (CUDA events on a

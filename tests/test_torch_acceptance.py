@@ -263,4 +263,5 @@ def test_committed_card_runs_are_within_their_tolerances(capsys, name):
         compare_runs.stage2(card, name, compare_runs.STAGE2[name], ok)
     out = capsys.readouterr().out
     assert "missing" not in out and ok and all(ok), out
-    assert len(ok) == {"floor": 2, "s2_flagship": 8, "s2_config4": 6}.get(name, 2)
+    assert len(ok) == {"floor": 2, "s2_flagship": 8, "s2_config4": 6,
+                       "s2_config4_threefry": 6}.get(name, 2)

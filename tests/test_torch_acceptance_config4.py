@@ -11,9 +11,9 @@
 - a small config-4 ``stage2`` (96x54, 3 cameras, a 3,000-Gaussian truth
   animated, the faithful quirk head, host staging, 1 sequence iteration x 2
   timesteps) writes the JAX script's result keys and equals the JAX
-  script's run: per-step losses 1e-5 relative (the port's network is the
-  JAX draw, carried across: the port cannot draw threefry), the rollout
-  PSNR 1e-3 dB (the JAX side renders with its CPU "stream" path);
+  script's run: per-step losses 1e-5 relative (each draws its network from
+  the config's seed, nothing carried across), the rollout PSNR 1e-3 dB
+  (the JAX side renders with its CPU "stream" path);
 - ``runs/acceptance_truth/config4_tpu_reference.json``, the TPU rows that
   ``chip_smoke.py`` compares with on the card, equals the TPU runs' logs.
 """
@@ -24,16 +24,10 @@ import json
 import sys
 from pathlib import Path
 
-import jax
-import numpy as np
 import pytest
 import torch
 
 import splatpu.obs.cache as jcache
-import splatpu.train.stage2 as js2
-from splatpu.dynamics.network import init_deformation_net as jinit
-import splatpu_torch.train.stage2 as ts2
-from splatpu_torch.dynamics.network import DeformationNet, state_dict_from_jax
 from splatpu_torch.tools import acceptance as tacc
 from splatpu_torch.train.optim import stage2_lr_at
 
@@ -152,20 +146,9 @@ def test_config4_stage2_matches_the_jax_script(tmp_path, jax_script, monkeypatch
                str(tmp_path / "jax"))
     ref = json.loads((tmp_path / "jax" / "stage2_result.json").read_text())
 
-    # The small truth takes config 4's run; the port's network is the JAX draw.
+    # The small truth takes config 4's run; the port draws its own network
+    # from the config's seed, as the JAX script does.
     monkeypatch.setattr(tacc, "STAGE2_RUNS", {SMALL["truth_n"]: tacc.STAGE2_RUNS[250_000]})
-    settings = tacc.stage2_settings(SMALL["truth_n"])
-    jcfg = js2.Stage2Config(**{k: v for k, v in settings["config"].items()
-                               if k != "view_staging"})
-    sd = state_dict_from_jax(jax.tree.map(np.asarray, jinit(jax.random.key(jcfg.seed),
-                                                            jcfg.net_config())))
-
-    def jax_net(config, generator, device):
-        net = DeformationNet(config)
-        net.load_state_dict(sd)
-        return net.to(device)
-
-    monkeypatch.setattr(ts2, "init_deformation_net", jax_net)
     got = tacc.main(["stage2", "--device", "cpu", "--truth", str(truth), *size, *run,
                      "--out", str(tmp_path / "port")])
 

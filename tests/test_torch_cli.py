@@ -38,6 +38,7 @@ import splatpu_torch.cli.render as trender
 import splatpu_torch.cli.train as ttrain
 import splatpu_torch.train.inference as tinference
 from splatpu_torch.data.dataset import save_synthetic_sequence
+from splatpu_torch.core import prng
 from splatpu_torch.data.synthetic import lookat_matrices, make_random_cloud
 from splatpu_torch.io.checkpoint import load_checkpoint, save_cloud
 from splatpu_torch.io.images import read_image
@@ -118,7 +119,7 @@ def sequence(tmp_path):
     seq = tmp_path / "seq"
     save_synthetic_sequence(seq, images, segs, K, w2c, rng.uniform(size=(50, 7)).astype(np.float32))
     save_cloud(seq / "densified_initial_gaussian_cloud_parameters.npz",
-               make_random_cloud(0, 200, device="cpu"))
+               make_random_cloud(prng.key(0), 200, device="cpu"))
     return tmp_path
 
 

@@ -1,7 +1,9 @@
 """Densification and the stage-1 optimizer, the port against the JAX package.
 
-- ``densify_and_prune`` handed the JAX package's own ``jax.random.normal``
-  draws (the split noise is an argument in the port): alive masks and the
+- ``split_normals`` (the port's split noise from a subkey) against the
+  draws JAX's ``densify_and_prune`` makes from it, bit for bit;
+- ``densify_and_prune`` handed the port's own draws from the key JAX's is
+  handed (the split noise is an argument in the port): alive masks and the
   masks of zeroed ("fresh") moment rows identical, ``info`` counts equal,
   parameters and moments within 1e-6, the statistics reset; on scenes that
   clone, split and prune at once (iteration 600), with the final-window
@@ -22,6 +24,8 @@ import splatpu.growth.densify as jd
 import splatpu.train.optim as joptim
 import splatpu_torch.growth.densify as td
 import splatpu_torch.train.optim as toptim
+from splatpu_torch.core import prng
+from splatpu_torch.train.stage1 import split_normals
 from _torch_scenes import jax_cloud, np_cloud, np_of, torch_cloud
 
 torch.set_num_threads(1)
@@ -72,6 +76,20 @@ def jax_normals(key, cap):
     return tuple(np.array(jax.random.normal(k, (cap, 3))) for k in (k1, k2))
 
 
+@pytest.mark.parametrize("seed,cap", [(11, 64), (0, 500_224), (2**31 + 3, 1000)])
+def test_split_normals_match_jax(seed, cap):
+    """``train/stage1.py``'s ``split_normals(sub)`` against the draws JAX's
+    densify_and_prune makes from ``sub`` (a stage-1 mutation's subkey),
+    bit for bit (on a CPU with FMA; see ``test_torch_prng.py``)."""
+    _, sub = jax.random.split(jax.random.PRNGKey(seed))
+    _, tsub = prng.split(prng.key(seed))
+    np.testing.assert_array_equal(tsub, np.asarray(sub))
+    got = split_normals(tsub, cap, "cpu")
+    for g, w in zip(got, jax_normals(sub, cap)):
+        assert g.shape == (cap, 3) and g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
 @pytest.mark.parametrize("case,i,n_alive,cap", [
     ("clone_split_prune", 600, 24, 64),
     ("final_window_prune", CFG.window_end, 24, 64),
@@ -85,7 +103,7 @@ def test_densify_matches_jax(case, i, n_alive, cap):
         jax_cloud(cloud_np), jax_state(moments), jd.DensifyStats(
             **{k: jnp.asarray(v) for k, v in stats_np.items()}), key, i, 1.0, CFG)
     adam = port_adam(cloud_np, moments)
-    normals = tuple(torch.from_numpy(x) for x in jax_normals(key, cap))
+    normals = split_normals(prng.key(11), cap, "cpu")  # the port's own draw from the key
     got_cloud, got_adam, got_stats, got_info = td.densify_and_prune(
         torch_cloud(cloud_np), adam, td.DensifyStats(
             **{k: torch.from_numpy(v) for k, v in stats_np.items()}), normals, i, 1.0,

@@ -35,6 +35,7 @@ import splatpu.io.checkpoint as jckpt
 import splatpu.train.stage2 as js2
 from splatpu.dynamics.network import DeformationNetConfig as JNetConfig
 from splatpu.dynamics.network import init_deformation_net as jinit
+from splatpu_torch.core import prng
 import splatpu_torch.io.checkpoint as tckpt
 from splatpu_torch.dynamics.network import (
     DeformationNet,
@@ -163,8 +164,8 @@ def test_bundles_cross_both_ways(tmp_path):
     jcfg = JNetConfig(hidden_dim=16, residual_blocks=2)
     j_params = jinit(jax.random.key(1), jcfg)
     jckpt.export_deformation_bundle(tmp_path / "jax", j_params, BUNDLE_CONFIG, jax_cloud(c))
-    net = init_deformation_net(DeformationNetConfig(hidden_dim=16, residual_blocks=2),
-                               torch.Generator().manual_seed(1), device="cpu")
+    net = init_deformation_net(prng.key(2), DeformationNetConfig(hidden_dim=16, residual_blocks=2),
+                               device="cpu")
     tckpt.export_deformation_bundle(tmp_path / "port", net, BUNDLE_CONFIG, torch_cloud(c))
     assert ((tmp_path / "jax" / "config.json").read_bytes()
             == (tmp_path / "port" / "config.json").read_bytes())

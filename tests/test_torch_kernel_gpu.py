@@ -531,6 +531,7 @@ def test_camera_sharded_training_on_two_gloo_ranks(cuda, tmp_path):
     from splatpu_torch.data.synthetic import lookat_matrices
     from splatpu_torch.dist import ranks
     from splatpu_torch.dist.launch import launch
+    from splatpu_torch.core import prng
     from splatpu_torch.dynamics.network import init_deformation_net
     from splatpu_torch.train.stage2 import Stage2Config
 
@@ -557,7 +558,7 @@ def test_camera_sharded_training_on_two_gloo_ranks(cuda, tmp_path):
     single = ranks.train_on_rank(cloud, views, cfg, device="cuda")["runs"][0]
     got = launch(ranks.train_on_rank, 2, (cloud, views, dict(cfg, mesh_cameras=2), "cuda"),
                  tmp_path, device="cuda", timeout_s=300)
-    init = init_deformation_net(Stage2Config(**cfg).net_config(), torch.Generator().manual_seed(0),
+    init = init_deformation_net(prng.key(0), Stage2Config(**cfg).net_config(),
                                 device="cpu").state_dict()
     runs = [r["runs"][0] for r in got]
     assert all(r["jax_modules"] == [] for r in got)

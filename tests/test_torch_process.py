@@ -31,6 +31,7 @@ from splatpu.dist.process import (
 )
 import splatpu_torch.cli.train_batch as tbatch
 import splatpu_torch.data.dataset as tds
+from splatpu_torch.core import prng
 from splatpu_torch.data.synthetic import lookat_matrices, make_random_cloud
 from splatpu_torch.dist import ranks
 from splatpu_torch.dist.launch import launch
@@ -81,7 +82,7 @@ def write_sequence(path, seed, frames=3):
     tds.save_synthetic_sequence(path, images, segs, K, w2c,
                                 rng.uniform(size=(50, 7)).astype(np.float32))
     save_cloud(path / "densified_initial_gaussian_cloud_parameters.npz",
-               make_random_cloud(seed, 200, device="cpu"))
+               make_random_cloud(prng.key(seed), 200, device="cpu"))
 
 
 def test_load_local_timestep_views_matches_jax(tmp_path):

@@ -9,9 +9,9 @@ JAX package's, on the same numpy inputs.
   mutations' counts equal, alive masks identical, parameters within 2e-2
   of how far they moved (the rotations through the covariance they give:
   see ``assert_runs_match``).  ``clone_scale_factor`` is high, so every hot
-  Gaussian clones and neither fit draws split noise (the split draws
-  differ between the packages; ``test_torch_growth.py`` holds the splits
-  given JAX's draws);
+  Gaussian clones; then again with it low, so that every mutation splits,
+  each package drawing its own split noise from its key, and the
+  checkpoint's ``key`` JAX's bit for bit;
 - resume: a checkpoint JAX wrote at iteration 5 of that fit, resumed by
   JAX and by the port to 12, step for step, under the same schedule;
 - checkpoints: ``runs/acceptance_s1/stage1_ckpt.msgpack`` (JAX, capacity
@@ -21,7 +21,8 @@ JAX package's, on the same numpy inputs.
   a grown budget is adopted on resume;
 - budget growth: a starved pair budget doubles, a span overflow grows the
   span and not the pairs;
-- the split noise: the same draws at the same mutation and key;
+- the split noise: the same draws from the same subkey, other draws
+  from the next one;
 - ``mesh_tiles`` with more than one view per step refused, as in the JAX
   package; ``cli.densify``'s parser against JAX's (plus ``--device``),
   ``--mesh-tiles 2 --views-per-step 2`` refused, and a run on the CPU of a tiny
@@ -49,6 +50,7 @@ from splatpu.render.api import render_dual as jax_render_dual
 from splatpu.render.binning import BinningConfig as JBinningConfig
 import splatpu_torch.cli.densify as tcli
 import splatpu_torch.train.stage1 as ts1
+from splatpu_torch.core import prng
 from splatpu_torch.data.dataset import save_synthetic_sequence
 from splatpu_torch.growth.densify import DensifyConfig, DensifyStats
 from splatpu_torch.io.checkpoint import (
@@ -133,6 +135,46 @@ def scene():
     return make_scene()
 
 
+SPLIT_SCHEDULE = dict(SCHEDULE, clone_scale_factor=0.01)
+
+
+def test_fit_with_splits_carries_jax_key(scene, tmp_path):
+    """A fit whose mutations (3, 6, 9) split, each from ``split(key)``,
+    with no draws carried across: JAX's checkpoint ``key`` bit for bit,
+    the mutations' counts equal, the alive masks identical and the
+    parameters (the rotations through their covariances) held as
+    ``test_fit_matches_jax`` holds them; the losses 1e-5 relative up to
+    the first split.  After it the losses part by ~1e-4: the children sit
+    at R (n * s) from their parent, and the rotations R, whose covariance
+    alone the packages agree on (see ``assert_runs_match``), differ by
+    Adam's rounding noise; handed the same noise, the port's losses are
+    the same (the draws themselves are held bit for bit in
+    ``test_torch_growth.py``)."""
+    pc, views = scene
+    common = dict(iterations=ITERATIONS, capacity_factor=2.0, views_per_step=1,
+                  checkpoint_every=ITERATIONS, seed=5)
+    jcfg = js1.Stage1Config(renderer="pallas", binning=JBinningConfig(**CFG),
+                            densify=JDensifyConfig(**SPLIT_SCHEDULE),
+                            checkpoint_path=str(tmp_path / "j.msgpack"), **common)
+    tcfg = ts1.Stage1Config(renderer="plain", binning=BinningConfig(**CFG),
+                            densify=DensifyConfig(**SPLIT_SCHEDULE),
+                            checkpoint_path=str(tmp_path / "t.msgpack"), **common)
+    j_rec, t_rec = Recorder(), Recorder()
+    j_cloud, _ = js1.fit(pc, views, RADIUS, jcfg, logger=j_rec)
+    t_cloud, _ = ts1.fit(pc, views, RADIUS, tcfg, logger=t_rec, device="cpu")
+    mutations = [m for _, m in j_rec.rows if "split" in m]
+    assert len(mutations) == 3 and all(m["split"] > 0 for m in mutations)
+    j_key = load_checkpoint(jcfg.checkpoint_path)["key"]
+    t_key = load_checkpoint(tcfg.checkpoint_path)["key"]
+    want = prng.key(5)
+    for _ in range(3):
+        want = prng.split(want)[0]
+    np.testing.assert_array_equal(np.asarray(t_key, np.uint32), np.asarray(j_key, np.uint32))
+    np.testing.assert_array_equal(np.asarray(t_key, np.uint32), want)
+    assert_runs_match(j_rec.rows, t_rec.rows, j_cloud, t_cloud, initial_state(pc),
+                      losses_until=3)
+
+
 @pytest.fixture(scope="module")
 def jax_fits(scene, tmp_path_factory):
     """JAX's fit at 1 and 2 views per step, and the checkpoint the 1-view
@@ -156,14 +198,14 @@ def jax_fits(scene, tmp_path_factory):
     return out, kept
 
 
-def assert_runs_match(j_rows, t_rows, j_cloud, t_cloud, start):
-    """Per-iteration losses 1e-5 relative, no overflow, the mutations'
-    counts equal, alive masks identical, and each parameter within 2e-2 of
-    how far it moved on the rows alive at ``start`` and at the end (1e-6
-    where it did not move)."""
+def assert_runs_match(j_rows, t_rows, j_cloud, t_cloud, start, losses_until=None):
+    """Per-iteration losses 1e-5 relative (up to ``losses_until``), no
+    overflow, the mutations' counts equal, alive masks identical, and each
+    parameter within 2e-2 of how far it moved on the rows alive at
+    ``start`` and at the end (1e-6 where it did not move)."""
     assert [s for s, _ in t_rows] == [s for s, _ in j_rows]
     for (step, jm), (_, tm) in zip(j_rows, t_rows):
-        for k in LOSSES:
+        for k in LOSSES if losses_until is None or step <= losses_until else ():
             assert tm[k] == pytest.approx(jm[k], rel=1e-5), (step, k)
         assert tm["binning_overflow"] == jm["binning_overflow"] == 0.0
         for k in INFO:
@@ -344,10 +386,14 @@ def test_budget_growth(scene):
 
 
 def test_split_noise_depends_on_key_and_iteration():
-    key = np.array([0, 7], np.uint32)
-    a = ts1.split_normals(key, 500, 64, "cpu")
-    b = ts1.split_normals(key, 500, 64, "cpu")
-    c = ts1.split_normals(key, 600, 64, "cpu")
+    """The noise is a function of the mutation's subkey alone; the
+    iteration reaches it through the key, split once per mutation."""
+    key = prng.key(7)
+    key, sub = prng.split(key)
+    a = ts1.split_normals(sub, 64, "cpu")
+    b = ts1.split_normals(sub, 64, "cpu")
+    _, sub_next = prng.split(key)
+    c = ts1.split_normals(sub_next, 64, "cpu")
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert not torch.equal(a[0], c[0]) and not torch.equal(a[0], a[1])
     assert a[0].shape == (64, 3)

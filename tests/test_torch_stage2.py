@@ -32,6 +32,7 @@ from splatpu.core.ssim import ssim as jax_ssim
 from splatpu.dynamics.network import DeformationNetConfig as JNetConfig, init_deformation_net as jinit
 from splatpu.neighbors.knn import knn_bruteforce as jknn
 from splatpu.render.binning import BinningConfig as JBinningConfig
+from splatpu_torch.core import prng
 from splatpu_torch.core.types import CLOUD_PARAMS
 import splatpu_torch.dynamics.rigidity as trig
 import splatpu_torch.train.losses as tlosses
@@ -156,10 +157,12 @@ def test_rigidity_loss_and_gradient_match_jax():
 
 def test_init_deformation_net():
     cfg = DeformationNetConfig(hidden_dim=32, residual_blocks=2, zero_init_head=True)
-    a = init_deformation_net(cfg, torch.Generator().manual_seed(3), device="cpu")
-    b = init_deformation_net(cfg, torch.Generator().manual_seed(3), device="cpu")
+    a = init_deformation_net(prng.key(3), cfg, device="cpu")
+    b = init_deformation_net(prng.key(3), cfg, device="cpu")
     for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(pa, pb), name
+    c = init_deformation_net(prng.key(4), cfg, device="cpu")
+    assert not torch.equal(a.fc_in.weight, c.fc_in.weight)
     assert not a.fc_out.weight.any() and not a.fc_out.bias.any()
     assert a.fc_in.weight.abs().max() <= 1 / 192**0.5
     assert a.fc_in.weight.abs().max() > 0.9 / 192**0.5
@@ -171,6 +174,21 @@ def test_init_deformation_net():
     back = state_dict_from_jax(tree)
     for name, p in a.state_dict().items():
         assert torch.equal(back[name], p), name
+
+
+@pytest.mark.parametrize("zero_init_head", [False, True], ids=["faithful", "zero_init"])
+@pytest.mark.parametrize("seed", [0, 7])
+def test_init_deformation_net_matches_jax(seed, zero_init_head):
+    """Config 3's and config 4's network (hidden 128, 3 blocks) from
+    ``key(seed)``: the JAX package's draw, bit for bit."""
+    jcfg = JNetConfig(hidden_dim=128, residual_blocks=3, zero_init_head=zero_init_head)
+    want = state_dict_from_jax(jax.tree.map(np.asarray, jinit(jax.random.key(seed), jcfg)))
+    cfg = DeformationNetConfig(hidden_dim=128, residual_blocks=3, zero_init_head=zero_init_head)
+    got = init_deformation_net(prng.key(seed), cfg, device="cpu").state_dict()
+    assert got.keys() == want.keys()
+    for name, p in got.items():
+        assert torch.equal(p, want[name]), name
+    assert bool(got["fc_out.weight"].any()) != zero_init_head
 
 
 # --- one stage-2 step from identical state -----------------------------------

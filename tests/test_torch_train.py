@@ -2,11 +2,14 @@
 state carried across from a JAX checkpoint.
 
 - 2 timesteps x 2 sequence iterations of both trainers from the same
-  initial network (``initial_net`` carries the JAX init across), the same
+  initial network (the port's draw from ``key(seed)``, held bit for bit
+  against the JAX package's, handed in as ``initial_net``), the same
   numpy cloud and views, the JAX renderer "pallas" (interpret mode): the
   per-step losses, the final parameters and the last metrics, under each
   view staging ("device", "device_u8", "host", "device_rotate" with a
   rotation every sequence iteration) and view batching ("vmap", "map");
+  and with no network handed in, each trainer drawing its own from the
+  config's seed (faithful and zero-init heads);
 - resume: JAX trains 2 of 3 sequence iterations writing a checkpoint, then
   JAX and the port each resume from that file to the third, step for step;
   a checkpoint the port writes restores in JAX's ``load_checkpoint``;
@@ -36,8 +39,11 @@ from splatpu.dynamics.network import init_deformation_net as jinit
 import splatpu_torch.data.dataset as tds
 import splatpu_torch.train.optim as toptim
 import splatpu_torch.train.stage2 as ts2
+from splatpu_torch.core import prng
 from splatpu_torch.dynamics.network import (
     DeformationNet,
+    DeformationNetConfig,
+    init_deformation_net,
     net_config_for,
     net_params_to_jax_tree,
     state_dict_from_jax,
@@ -81,12 +87,13 @@ def views(seed, u8):
 
 
 def port_net(jcfg, seed=3):
-    """The JAX package's initial network of ``jcfg`` as a ``DeformationNet``
-    (and its numpy tree)."""
+    """The port's initial network from ``key(seed)`` (and its numpy tree),
+    which is the JAX package's draw bit for bit."""
+    net = init_deformation_net(prng.key(seed), DeformationNetConfig(
+        **dataclasses.asdict(jcfg.net_config())), device="cpu")
     init = jax.tree.map(np.asarray, jinit(jax.random.key(seed), jcfg.net_config()))
-    sd = state_dict_from_jax(init)
-    net = DeformationNet(net_config_for(sd))
-    net.load_state_dict(sd)
+    for got, want in zip(jax.tree.leaves(net_params_to_jax_tree(net)), jax.tree.leaves(init)):
+        np.testing.assert_array_equal(got, want)
     return net, init
 
 
@@ -149,6 +156,27 @@ def test_train_matches_jax(order, staging, u8, k, extra):
     # they moved.
     assert_params_match(j_params, t_net, init)
     assert float(t_met["total"]) == pytest.approx(float(j_met["total"]), rel=1e-5)
+
+
+@pytest.mark.parametrize("zero_init_head", [False, True], ids=["faithful", "zero_init"])
+def test_train_from_seed_matches_jax(zero_init_head):
+    """No network handed in: both trainers draw their own from
+    ``key(config.seed)``; the same losses (1e-5) and parameters."""
+    cloud = np_cloud(11, 256)
+    j_views, t_views = both_views(views(12, False))
+    common = dict(total_iterations=2, warmup_iterations=1, hidden_dim=32, residual_blocks=2,
+                  views_per_step=2, timestep_count=2, overflow_check_every=1, seed=5,
+                  zero_init_head=zero_init_head)
+    jcfg = js2.Stage2Config(renderer="pallas", compute_dtype="float32", **common)
+    j_log, t_log = Recorder(), Recorder()
+    j_params, *_ = js2.train(jax_cloud(cloud), j_views, jcfg, logger=j_log)
+    t_net, *_ = ts2.train(torch_cloud(cloud), t_views,
+                          ts2.Stage2Config(renderer="plain", **common), logger=t_log,
+                          device="cpu")
+    assert [s for s, _ in t_log.rows] == [s for s, _ in j_log.rows] == [1, 2, 3, 4]
+    assert_steps_match(j_log.rows, t_log.rows)
+    _, init = port_net(jcfg, seed=5)
+    assert_params_match(j_params, t_net, init)
 
 
 def test_mesh_tiles_alone_trains_on_one_device():
