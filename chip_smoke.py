@@ -51,7 +51,10 @@ Phases, each printed with its wall time and bounded by a watchdog:
    NEW_SERVE_TIMESTEPS plus t=0 (a depth cut) through K4 and through K5 at
    a 16 px budget measured at 16 px.  Every kernel count is zeroed just
    before ``run_inference`` and read just after; the path's forward kernel
-   must have run at every render and no other composite at all.
+   must have run at every render and no other composite at all.  Then
+   ``serve`` runs VIDEO_TIMESTEPS timesteps again with an output
+   directory: the PNG frames and one video per camera (without imageio a
+   GIF through PIL holding every frame at 1280x720, looping).
 9. train, train_manual, train_padded: ``train`` at full width, cut in depth:
    the real cloud, the checkpoint's network with a fresh Adam, the head
    settings of its result file, targets rendered on the card from the cloud
@@ -110,10 +113,10 @@ Phases, each printed with its wall time and bounded by a watchdog:
    config 3's head flags; then ``cli.render`` of the bundle.  Checks the
    checkpoint's ``seq_it``, the resumed run's first step (5), finite losses
    and ``mean-image-loss`` rows, the bundle's files, the standalone
-   render's frames within 1 level of the trainer's, and that only K1, K2
-   and the routing launched; prints ms per step and wall ms per iteration
-   by staging mode, the checkpoint write, the sequence load and whether
-   video was written.
+   render's frames within 1 level of the trainer's, a video per orbit
+   camera, and that only K1, K2 and the routing launched; prints ms per
+   step and wall ms per iteration by staging mode, the checkpoint write,
+   the sequence load and the videos.
 15. knn_native: 250,000 points from a seed through ``knn`` (which routes
    them to the native KD-tree), timed beside the port's own
    ``knn_bruteforce`` on the card, against brute force on the card: indices
@@ -243,12 +246,25 @@ scale: every rank computes on the same card.
    losses within 1e-5 of the tool's.  Shows that config 4's camera
    sharding runs and agrees, not that it scales.
 
+27. bench: ``bench_torch.main(profile=BENCH_PROFILE)``, the port's bench
+   entry (``bench.py``'s workload: one forward + backward of 100,000 random
+   Gaussians from the JAX package's ``key(0)`` draw at 1280x720, 32 px
+   tiles, 400,128 pairs), which prints its lines and the card's busy share
+   over BENCH_PROFILE calls; its run counted: K1, K2 and the routing once per
+   forward + backward and nothing else, no overflow.  Then one forward +
+   backward through the kernels against the plain versions (loss 1e-5
+   relative, image, depth, final T and ``last`` as every forward, the five
+   gradient groups 1e-4 scaled per row), and K1, K2 and the routing at
+   that shape on the bench loss's cotangents: times, the plain versions'
+   (K1's too), ``index_add_`` for the routing, bounds.
+
 Prints one ``{"kernels": [...]}`` JSON line (the routing once per slot
 mode, each with the launches of its paths; the forwards also with their
 time and bound at the training shapes, ``train_ms`` and
 ``train_bound_ms``; K1 and K2 also at the stage-1 shape, ``stage1_ms`` and
 ``stage1_bound_ms``; K2 also at 8 and 24 px tiles at the training shapes,
-``tiles``), then the card line, and last
+``tiles``; K1, K2 and the routing also at the bench shape, ``bench_*``),
+then the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; nothing is
 caught and continued.  Imports nothing of JAX.
 """
@@ -283,6 +299,8 @@ NEW_BWD_TILES = (8, 24)  # the backward body's tiles besides 16 and 32 (px)
 OPTION_TIMESTEPS = 2     # train_options: timesteps per run
 STAGING_ITERATIONS = 6   # train_options: sequence iterations per staging mode
 CLI_FRAMES = 3           # cli: frames 0..2 of the sequence, T = 2 trainable
+VIDEO_TIMESTEPS = 2      # serve: the rollout written as frames and videos
+BENCH_PROFILE = 5        # bench: calls profiled for the card's busy share
 KNN_POINTS = 250_000     # knn_native: above the native route's 200,000
 KNN_K = 20
 S1_CAPACITY_FACTOR = 6.0   # config 2: 33,528 points -> 201,216 slots
@@ -649,16 +667,17 @@ def bwd_work(kin_start, last, geo, n_live):
 
 
 def kernel_entry(name, source, replaces, by_path, err, ms, plain_ms, bound, library_ms=None,
-                 train=None, tiles=None, stage1=None):
+                 train=None, tiles=None, stage1=None, bench=None):
     """One entry of the kernels line; ``train``: a forward's numbers at the
     training shapes; ``tiles``: a backward's at other tiles there;
-    ``stage1``: the numbers at the stage-1 shape."""
-    bound_ms, t_bytes, t_ops = bound[:3]
+    ``stage1``: the numbers at the stage-1 shape; ``bench``: at the bench
+    shape (``bench_torch.py``'s one view)."""
+    bound_by = lambda b: "operations" if b[2] >= b[1] else "bytes"  # noqa: E731
     entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": sum(by_path.values()), "launches_by_path": by_path, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": library_ms,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound_by(bound),
+        "library_ms": library_ms,
     }
     if train is not None:
         entry.update(train_ms=train["ms"], train_bound_ms=train["bound"][0],
@@ -668,6 +687,10 @@ def kernel_entry(name, source, replaces, by_path, err, ms, plain_ms, bound, libr
     if stage1 is not None:
         entry.update(stage1_ms=stage1["ms"], stage1_bound_ms=stage1["bound"][0],
                      stage1_max_abs_err=stage1["err"])
+    if bench is not None:
+        entry.update(bench_ms=bench["ms"], bench_bound_ms=bench["bound"][0],
+                     bench_bound_by=bound_by(bench["bound"]), bench_max_abs_err=bench["err"],
+                     bench_plain_ms=bench["plain_ms"], bench_library_ms=bench.get("library_ms"))
     return entry
 
 
@@ -1143,8 +1166,9 @@ def cli_path(dev, cloud, head):
               flush=True)
         vis = run / "visualizations"
         videos = sorted(p.name for p in vis.iterdir() if p.suffix in (".mp4", ".gif"))
-        print(f"  output: {'video ' + str(videos) if videos else 'frames only (no imageio)'}",
-              flush=True)
+        print(f"  output: videos {videos}", flush=True)
+        if len(videos) != 5:
+            fail(f"cli: videos written {videos}, expected one per orbit camera")
         if seq_it != 1:
             fail(f"cli: the first run's checkpoint holds seq_it {seq_it}, expected 1")
         if [r["step"] for r in steps] != [1, 2, 3, 4, 5, 6] or resumed[:1] != [5]:
@@ -2435,6 +2459,117 @@ def flat_leaves(tree, prefix="") -> dict:
     return {prefix: tree}
 
 
+def video_path(net, cloud, head):
+    """``run_inference`` of VIDEO_TIMESTEPS timesteps with an output
+    directory: one video per orbit camera (a GIF through PIL where imageio
+    is absent) holding every frame at the served size, and the PNG frames.
+    Returns the launch counts."""
+    import tempfile
+
+    from PIL import Image
+
+    from splatpu_torch.dynamics.deform import normalize_and_encode_means_and_rotations
+    from splatpu_torch.io.video import have_imageio
+    from splatpu_torch.train.inference import run_inference
+    from splatpu_torch.train.stage2 import Stage2Config
+
+    config = Stage2Config(timestep_count=VIDEO_TIMESTEPS, renderer="cuda",
+                          quirk_compat=head["quirk_compat"])
+    enc = normalize_and_encode_means_and_rotations(
+        cloud.means, cloud.rotation_quaternions, quirk_compat=config.quirk_compat)
+    with tempfile.TemporaryDirectory(prefix="splatpu_video_") as tmp:
+        zero_counts()
+        t0 = time.perf_counter()
+        frames, stats = run_inference(net, cloud, enc, config, width=SERVE_SIZE[0],
+                                      height=SERVE_SIZE[1], device=DEVICE, output_directory=tmp)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        videos = stats["videos"]
+        print(f"  video: {VIDEO_TIMESTEPS} timesteps + t=0 written in {wall:.2f} s wall: "
+              + ", ".join(f"{k} {v.name}" for k, v in videos.items()), flush=True)
+        if sorted(videos) != sorted(frames):
+            fail(f"serve video: videos for {sorted(videos)}, cameras {sorted(frames)}")
+        for name, path in videos.items():
+            if not path.is_file():
+                fail(f"serve video: camera {name} has no video ({path})")
+            pngs = sorted((Path(tmp) / "frames" / name).glob("*.png"))
+            if len(pngs) != VIDEO_TIMESTEPS + 1:
+                fail(f"serve video: camera {name} has {len(pngs)} PNG frames")
+            if have_imageio():
+                continue
+            with Image.open(path) as im:
+                got = (path.suffix, im.n_frames, im.size, im.info.get("loop"))
+            if got != (".gif", VIDEO_TIMESTEPS + 1, SERVE_SIZE, 0):
+                fail(f"serve video: camera {name}: (suffix, frames, size, loop) {got}")
+    if counts["composite_fwd"] != stats["renders"]:
+        fail(f"serve video: {counts['composite_fwd']} K1 launches in {stats['renders']} renders")
+    check_only(counts, {"composite_fwd"}, "serve video")
+    return counts
+
+
+def bench_path(dev):
+    """``bench_torch.main`` at full size, every count zeroed just before
+    and read just after: K1, K2 and the routing once per forward + backward
+    and nothing else, no overflow; then one forward + backward through the
+    kernels against the plain versions on the same inputs: the loss 1e-5
+    relative, image, depth, final T and ``last`` as every forward, the five
+    gradient groups 1e-4 scaled per row.  Returns the launch counts."""
+    import torch
+
+    import bench_torch
+    from splatpu_torch.tools.measure import row_scaled_err
+
+    torch.cuda.synchronize()
+    zero_counts()
+    result = bench_torch.main(profile=BENCH_PROFILE)
+    counts = launch_counts()
+    expected = ("composite_fwd", "composite_bwd", "route_pairs")
+    calls = (1 + BENCH_PROFILE + bench_torch.WARMUP + bench_torch.ITERS
+             + bench_torch.CHAIN * (bench_torch.CHAIN_WARMUP + bench_torch.CHAIN_ITERS))
+    print(f"  bench: {calls} forward + backward calls, launches {counts}", flush=True)
+    if result["overflowed"]:
+        fail("bench: the render overflowed its pair budget")
+    if any(counts[k] != calls for k in expected) or result["launches"] != counts:
+        fail(f"bench: launches {counts} (bench_torch's own count {result['launches']}),"
+             f" expected {calls} of each of {expected}")
+    check_only(counts, set(expected), "bench")
+
+    cloud, cam, config = bench_torch.scene(dev)
+    target = torch.zeros((3, cam.height, cam.width), device=dev)
+    runs = {impl: bench_torch.loss_and_grads(cloud, cloud.param_dict(), cam, config, target,
+                                             impl=impl) for impl in ("cuda", "plain")}
+    (loss, out, grads), (loss_ref, out_ref, grads_ref) = runs["cuda"], runs["plain"]
+    fields = lambda o: tuple(x.detach() for x in (  # noqa: E731
+        o.image, o.depth, o.final_transmittance, o.last_contributor))
+    check_errors(compare(fields(out), fields(out_ref)), "bench forward, cuda against plain")
+    rel = abs(float(loss) / float(loss_ref) - 1.0)
+    print(f"  bench loss {float(loss):.8f}, plain {float(loss_ref):.8f} (relative {rel:.2e})",
+          flush=True)
+    if not rel <= 1e-5:
+        fail(f"bench: loss {float(loss)} against the plain versions' {float(loss_ref)}")
+    check_rows("bench gradients, cuda against plain",
+               {k: row_scaled_err(g, grads_ref[k]) for k, g in grads.items()})
+    return counts
+
+
+def bench_case(dev):
+    """The kernels' inputs at the bench shape (``table_case``), with the
+    cotangents of the bench's loss, mean |image| + 0.1 mean depth."""
+    import torch
+
+    import bench_torch
+    import splatpu_torch.render.composite as composite
+    from splatpu_torch.core.types import activate_cloud, stack_cameras
+
+    cloud, cam, config = bench_torch.scene(dev)
+    case = table_case(activate_cloud(cloud), stack_cameras([cam]), config,
+                      composite.composite_fwd_cuda)
+    image, depth, tfin = case["out"][:3]
+    case["cot"] = (torch.sign(image) / image.numel(),
+                   torch.full_like(depth, 0.1 / depth.numel()), torch.zeros_like(tfin))
+    return case
+
+
 def main() -> int:
     import torch
 
@@ -2477,7 +2612,8 @@ def main() -> int:
         print("  image I/O and progress: " + ", ".join(
             f"{k} {'present' if v else 'absent'}" for k, v in have.items())
             + ("" if have["PIL"] else "; images through the port's PNG codec")
-            + ("" if have["imageio"] else "; frames as PNG through the codec, no video"),
+            + ("" if have["imageio"] else "; frames as PNG through the codec, videos as GIF"
+                                          " through PIL"),
             flush=True)
 
     with phase("build", 200):
@@ -2557,6 +2693,7 @@ def main() -> int:
         config = Stage2Config(timestep_count=TIMESTEPS, renderer="cuda",
                               quirk_compat=head["quirk_compat"])
         served["serve"] = serve_path("serve", net, cloud, config, "composite_fwd", TIMESTEPS)
+        served["serve_video"] = (video_path(net, cloud, head), None)
 
     with phase("serve_manual", 240):
         demand = measure_binning_demand(args, orbit)
@@ -2646,13 +2783,13 @@ def main() -> int:
                             composite.composite_fwd_cuda(*kin, **geo), table_bytes_in(kin))
 
     def measure_table_bwd(label, case, fwd_label, fwd, fwd_plain, bwd, bwd_plain,
-                          shapes="the training shapes"):
-        """At ``shapes``: a table forward (errors, time, bound), its
-        backward and the routing (errors, times, the index_add_ yardstick
-        and both bounds)."""
+                          shapes="the training shapes", time_plain_fwd=False):
+        """At ``shapes``: a table forward (errors, time, bound, the plain
+        version's time with ``time_plain_fwd``), its backward and the
+        routing (errors, times, the index_add_ yardstick and both bounds)."""
         kin, geo, cot, (tfin, last) = case["kin"], case["geo"], case["cot"], case["fwd"]
         kf, n_live = measure_fwd(f"{fwd_label} at {shapes}", fwd, fwd_plain, kin, geo,
-                                 case["out"], table_bytes_in(kin), time_plain=False)
+                                 case["out"], table_bytes_in(kin), time_plain=time_plain_fwd)
         offsets, counts, lane = case["offsets"], case["counts"], case["lane"]
         run = lambda: bwd(*kin, tfin, last, *cot, **geo)  # noqa: E731
         run_plain = lambda: bwd_plain(*kin, tfin, last, *cot, **geo)  # noqa: E731
@@ -2895,6 +3032,15 @@ def main() -> int:
     with phase("acceptance_config4", 420):
         trained["acceptance_config4"] = (acceptance_config4_path(dev, card), None)
 
+    with phase("bench", 60):
+        trained["bench"] = (bench_path(dev), None)
+        case = bench_case(dev)
+        k1_b, k2_b, k3_b = measure_table_bwd(
+            "K2", case, "K1", composite.composite_fwd_cuda, composite.composite_fwd_plain,
+            composite.composite_bwd_cuda, composite.composite_bwd_plain,
+            shapes="the bench shape (one view, 100,000 random Gaussians)", time_plain_fwd=True)
+        del case
+
     for k, v in ptxas_summary(_build.build_log).items():
         print(f"  ptxas {k}: {v}", flush=True)
     launched = {path: counts for path, (counts, _) in {**served, **trained}.items()}
@@ -2906,12 +3052,13 @@ def main() -> int:
     kernels = [
         kernel_entry("composite_fwd", "splatpu_torch/csrc/composite_fwd.cu",
                      "splatpu/render/exact.py:856 (_fwd_kernel_grid)", by_path("composite_fwd"),
-                     **k1, train=k1_train, stage1=k1_s1),
+                     **k1, train=k1_train, stage1=k1_s1, bench=k1_b),
         kernel_entry("composite_bwd", "splatpu_torch/csrc/composite_bwd.cu",
                      "splatpu/render/exact.py:994 (_bwd_kernel_grid)", by_path("composite_bwd"),
-                     **k2, tiles=k2_tiles, stage1=k2_s1),
+                     **k2, tiles=k2_tiles, stage1=k2_s1, bench=k2_b),
         kernel_entry("route_pairs", "splatpu_torch/csrc/route_pairs.cu",
-                     "splatpu/render/exact.py:1320 (_cumsum_pairs_pallas)", routes_exact, **k3),
+                     "splatpu/render/exact.py:1320 (_cumsum_pairs_pallas)", routes_exact, **k3,
+                     bench=k3_b),
         kernel_entry("route_pairs_padded", "splatpu_torch/csrc/route_pairs.cu",
                      "splatpu/render/exact.py:1320 (_cumsum_pairs_pallas); slot semantics of"
                      " splatpu/render/pallas_composite.py:507-513", routes_padded, **k3p),

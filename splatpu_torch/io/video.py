@@ -2,20 +2,17 @@
 
 Frames go through imageio where it is installed, as in the JAX package,
 else through the port's PNG codec (``splatpu_torch.io.images``).  A video is
-an MP4 through imageio, or a GIF where imageio has no MP4 writer; without
-imageio no video is written, and a warning naming imageio is given once.
+an MP4 through imageio, or a GIF where imageio has no MP4 writer or is not
+installed: the GIF the JAX package's fallback writes, through PIL.
 """
 
 from __future__ import annotations
 
-import warnings
 from pathlib import Path
 
 import numpy as np
 
 from splatpu_torch.io.images import write_png
-
-_warned_no_imageio = False
 
 
 def have_imageio() -> bool:
@@ -47,23 +44,24 @@ def write_frame(path, frame: np.ndarray) -> np.ndarray:
     return frame
 
 
-def write_video(path, frames: list[np.ndarray], fps: int = 30) -> Path | None:
-    """An MP4 of ``frames``, or a GIF beside it where imageio writes no MP4;
-    the path written, or None without imageio."""
-    global _warned_no_imageio
-    if not have_imageio():
-        if not _warned_no_imageio:
-            warnings.warn("imageio is not installed: frames are written, no video", stacklevel=2)
-            _warned_no_imageio = True
-        return None
-    import imageio
-
+def write_video(path, frames: list[np.ndarray], fps: int = 30) -> Path:
+    """An MP4 of ``frames``, or a GIF beside it (``path`` with the suffix
+    ``.gif``, 1000 / fps ms per frame, looping) where imageio writes no MP4
+    or is not installed; returns the path written."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
+    gif = path.with_suffix(".gif")
+    if not have_imageio():
+        from PIL import Image
+
+        first, *rest = (Image.fromarray(f) for f in frames)
+        first.save(gif, save_all=True, append_images=rest, duration=1000.0 / fps, loop=0)
+        return gif
+    import imageio
+
     try:
         imageio.mimwrite(path, frames, fps=fps)
         return path
     except Exception:
-        gif = path.with_suffix(".gif")
         imageio.mimwrite(gif, frames, duration=1000.0 / fps, loop=0)
         return gif

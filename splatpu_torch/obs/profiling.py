@@ -48,27 +48,34 @@ def force_completion(device=None) -> None:
         torch.cuda.synchronize(device)
 
 
-def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 10, batches: int = 2,
-            device="cuda") -> dict:
+def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 10, args_fn=None,
+            batches: int = 2, device="cuda") -> dict:
     """{'mean_ms', 'spread_ms', 'iters', 'timer'} of ``fn(*args)``: the
     iterations run in ``batches`` batches after ``warmup`` calls, each batch
     timed by ``tools.measure.cuda_ms`` on a card (a host clock around a
     synchronised batch elsewhere); ``spread_ms`` is the largest minus the
-    smallest batch mean."""
+    smallest batch mean.
+
+    ``args_fn(i) -> tuple`` gives call ``i`` its own inputs (warm-up calls
+    ``-warmup .. -1``, timed calls ``0 .. iters - 1``); every input is built
+    before the first call, so that building them is not timed."""
     on_card = torch.device(device).type == "cuda"
-    for _ in range(warmup):
-        fn(*args)
+    get = args_fn if args_fn is not None else (lambda i: args)
+    inputs = [get(i) for i in range(-warmup, iters)]
+    for a in inputs[:warmup]:
+        fn(*a)
     force_completion(device if on_card else "cpu")
+    timed = iter(inputs[warmup:])
     batches = max(1, min(batches, iters))
     per = [iters // batches + (1 if i < iters % batches else 0) for i in range(batches)]
     batch_ms = []
     for count in per:
         if on_card:
-            batch_ms.append(cuda_ms(lambda: fn(*args), reps=count, warmup=0))
+            batch_ms.append(cuda_ms(lambda: fn(*next(timed)), reps=count, warmup=0))
         else:
             t0 = time.perf_counter()
             for _ in range(count):
-                fn(*args)
+                fn(*next(timed))
             batch_ms.append(1e3 * (time.perf_counter() - t0) / count)
     return {
         "mean_ms": sum(m * c for m, c in zip(batch_ms, per)) / iters,

@@ -21,7 +21,8 @@ under a doubled budget (pair and span growth apart), at most
 ``MAX_BUDGET_GROWTHS`` times.  Frames come back as uint8 (H, W, 3) arrays;
 with an ``output_directory`` they are also written as
 ``frames/<camera>/<t:06d>.png`` and each camera's as a video
-(``io/video.py``: MP4, or GIF, or none without imageio).  With real views
+(``io/video.py``: MP4, or GIF where imageio writes no MP4 or is not
+installed).  With real views
 (``views_by_timestep``) each timestep's mean image loss (0.8 L1 + 0.2
 (1 - SSIM)) over them is taken, in one render per image size.
 
