@@ -11,11 +11,13 @@ scale_range=(0.005, 0.02))`` (the JAX package's draw) seen by a look-at
 camera from (0, 0, -4) at 1280x720 with ``default_config(n)``'s budget.
 The loss is mean |image - 0| + 0.1 mean depth; the gradients are taken
 with respect to the means, colours, quaternions, opacity logits and log
-scales.  Timing as in ``bench.py``: 2 warm-up calls, then 10 timed calls in
-two batches (CUDA events around each batch), the means shifted by
-i * 1e-7 in call i; then chains of 8 frames, each frame's means moved by
-1e-12 times the last frame's mean gradient, timed as one unit each (1
-warm-up chain, 4 timed).
+scales.  Timing as in ``bench.py`` (``obs.profiling.time_fn``, the JAX
+package's ``time_fn``): 3 warm-up calls, then 10 timed calls in two
+batches, each read on the host clock from a synchronised card to the
+completion of its last call, the means shifted by i * 1e-7 in call i; then
+chains of 8 frames, each frame's means moved by 1e-12 times the last
+frame's mean gradient, timed as one unit each (2 warm-up chains, 4 timed).
+One untimed call before them reads the overflow and the pair count.
 
 Prints the card's name and power limit, the per-call mean and spread (and
 the first call's seconds, the kernels' build included, apart), each
@@ -184,7 +186,8 @@ def main(chained: int = 0, device=None, profile: int = 0) -> dict:
             "chain_length": chained,
             "vs_baseline": round(BASELINE_MS / cms, 4),
         }), flush=True)
-    return dict(line, ms=ms, chained_ms=cms, launches=launches, overflowed=overflowed)
+    return dict(line, ms=ms, spread_ms=stats["spread_ms"], timer=stats["timer"],
+                chained_ms=cms, launches=launches, overflowed=overflowed)
 
 
 if __name__ == "__main__":

@@ -86,11 +86,11 @@ Phases, each printed with its wall time and bounded by a watchdog:
 12. bwd_tiles: at 5 x 320x180 with 8 and 24 px tiles (``NEW_BWD_TILES``):
    K1 and K4's forward there against their plain versions (``last``
    identical), and K2 and K4's backward from that ``last``, held as in
-   compare_bwd; then K2 at those tiles at the training shapes (five
-   1280x720 rig views at each tile's demand budget) against its plain
-   version, its time and its bound.  It runs after the measure phases so
-   that the serve, train and measure phases follow the same work as before
-   these tiles existed.
+   compare_bwd; then K2, and after it K4's backward, at those tiles at the
+   training shapes (five 1280x720 rig views at each tile's demand budget)
+   against its plain version, its time and its bound.  It runs after the
+   measure phases so that the serve, train and measure phases follow the
+   same work as before these tiles existed.
 13. train_options: ``train`` at full width, 2 timesteps, from the same
    start each time: ``view_batching="vmap"`` and ``"map"`` (five renders
    per step; its per-step losses within 1e-5 relative of vmap's) and
@@ -251,8 +251,9 @@ scale: every rank computes on the same card.
    Gaussians from the JAX package's ``key(0)`` draw at 1280x720, 32 px
    tiles, 400,128 pairs), which prints its lines and the card's busy share
    over BENCH_PROFILE calls; its run counted: K1, K2 and the routing once per
-   forward + backward and nothing else, no overflow.  Then one forward +
-   backward through the kernels against the plain versions (loss 1e-5
+   forward + backward and nothing else, no overflow; ``time_fn``'s per-call
+   mean and spread printed with its timer, which must be the host clock.
+   Then one forward + backward through the kernels against the plain versions (loss 1e-5
    relative, image, depth, final T and ``last`` as every forward, the five
    gradient groups 1e-4 scaled per row), and K1, K2 and the routing at
    that shape on the bench loss's cotangents: times, the plain versions'
@@ -262,9 +263,9 @@ Prints one ``{"kernels": [...]}`` JSON line (the routing once per slot
 mode, each with the launches of its paths; the forwards also with their
 time and bound at the training shapes, ``train_ms`` and
 ``train_bound_ms``; K1 and K2 also at the stage-1 shape, ``stage1_ms`` and
-``stage1_bound_ms``; K2 also at 8 and 24 px tiles at the training shapes,
-``tiles``; K1, K2 and the routing also at the bench shape, ``bench_*``),
-then the card line, and last
+``stage1_bound_ms``; K2 and K4's backward also at 8 and 24 px tiles at
+the training shapes, ``tiles``; K1, K2 and the routing also at the bench
+shape, ``bench_*``), then the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; nothing is
 caught and continued.  Imports nothing of JAX.
 """
@@ -2524,9 +2525,14 @@ def bench_path(dev):
     result = bench_torch.main(profile=BENCH_PROFILE)
     counts = launch_counts()
     expected = ("composite_fwd", "composite_bwd", "route_pairs")
-    calls = (1 + BENCH_PROFILE + bench_torch.WARMUP + bench_torch.ITERS
-             + bench_torch.CHAIN * (bench_torch.CHAIN_WARMUP + bench_torch.CHAIN_ITERS))
+    # time_fn runs warmup + 1 warm-up calls, as the JAX package's does.
+    calls = (1 + BENCH_PROFILE + bench_torch.WARMUP + 1 + bench_torch.ITERS
+             + bench_torch.CHAIN * (bench_torch.CHAIN_WARMUP + 1 + bench_torch.CHAIN_ITERS))
     print(f"  bench: {calls} forward + backward calls, launches {counts}", flush=True)
+    print(f"  bench per call (time_fn): mean {result['ms']:.4f} ms, spread"
+          f" {result['spread_ms']:.4f} ms, timer {result['timer']}", flush=True)
+    if result["timer"] != "host_clock":
+        fail(f"bench: time_fn's timer is {result['timer']}, not the host clock")
     if result["overflowed"]:
         fail("bench: the render overflowed its pair budget")
     if any(counts[k] != calls for k in expected) or result["launches"] != counts:
@@ -2958,14 +2964,23 @@ def main() -> int:
                 compare_table_bwd(where, case, getattr(composite, f"{bwd_name}_cuda"),
                                   getattr(composite, f"{bwd_name}_plain"), ("cuda", kernel))
                 del case, ref
-        k2_tiles = {}
+        k2_tiles, k4_tiles = {}, {}
         cams5 = rig_cams(dev, *SERVE_SIZE, 5)
-        for tile in NEW_BWD_TILES:
-            b = demand_binning(*measure_binning_demand(args, cams5, tile=tile), tile=tile)
+        tile_binnings = {tile: demand_binning(*measure_binning_demand(args, cams5, tile=tile),
+                                              tile=tile) for tile in NEW_BWD_TILES}
+        for tile, b in tile_binnings.items():
             case = bwd_case(args, cams5, dev, binning=b)
             k2_tiles[str(tile)] = measure_bwd_tile(
                 f"K2 tile {tile} at the training shapes", case, composite.composite_fwd_plain,
                 composite.composite_bwd_cuda, composite.composite_bwd_plain)
+            del case
+        for tile, b in tile_binnings.items():
+            case = table_case(args, cams5, dataclasses.replace(b, kernel="manual"),
+                              composite.composite_manual_fwd_cuda)
+            k4_tiles[str(tile)] = measure_bwd_tile(
+                f"K4 bwd tile {tile} at the training shapes", case,
+                composite.composite_manual_fwd_plain, composite.composite_manual_bwd_cuda,
+                composite.composite_manual_bwd_plain)
             del case
 
     # These phases run after the measure phases, so that the kernels are
@@ -3067,7 +3082,7 @@ def main() -> int:
                      **k4f, train=k4f_train),
         kernel_entry("composite_manual_bwd", "splatpu_torch/csrc/composite_manual_bwd.cu",
                      "splatpu/render/exact.py:679 (_bwd_kernel)", by_path("composite_manual_bwd"),
-                     **k4b),
+                     **k4b, tiles=k4_tiles),
         kernel_entry("padded_fwd", "splatpu_torch/csrc/padded_fwd.cu",
                      "splatpu/render/pallas_composite.py:113 (_fwd_kernel)",
                      by_path("padded_fwd"), **k5f, train=k5f_train),

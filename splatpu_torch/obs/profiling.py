@@ -1,9 +1,8 @@
 """Timing and tracing helpers (port of ``splatpu/obs/profiling.py``).
 
 - ``force_completion``: wait for the card's queued work;
-- ``time_fn``: ms per call, ``tools.measure.cuda_ms`` on a card (a host
-  clock around a synchronised run elsewhere), in batches whose spread is
-  reported;
+- ``time_fn``: ms per call, a host clock around each batch of calls and
+  the wait for its completion, in batches whose spread is reported;
 - ``trace``: ``torch.profiler`` over a block, its Chrome trace written to a
   directory;
 - ``debug_nan_mode``: autograd anomaly detection over a block;
@@ -19,8 +18,6 @@ from pathlib import Path
 from typing import Callable
 
 import torch
-
-from splatpu_torch.tools.measure import cuda_ms
 
 # Every kernel's launch counter, by kernel: (module, attribute).
 COUNTERS = {
@@ -50,38 +47,35 @@ def force_completion(device=None) -> None:
 
 def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 10, args_fn=None,
             batches: int = 2, device="cuda") -> dict:
-    """{'mean_ms', 'spread_ms', 'iters', 'timer'} of ``fn(*args)``: the
-    iterations run in ``batches`` batches after ``warmup`` calls, each batch
-    timed by ``tools.measure.cuda_ms`` on a card (a host clock around a
-    synchronised batch elsewhere); ``spread_ms`` is the largest minus the
-    smallest batch mean.
+    """{'mean_ms', 'spread_ms', 'iters', 'timer'} of ``fn(*args)``, timed as
+    the JAX package's ``time_fn`` is: ``warmup + 1`` warm-up calls, then the
+    iterations in ``batches`` batches, each read on the host clock from a
+    synchronised device to the completion of its last call; ``spread_ms`` is
+    the largest minus the smallest batch mean.
 
     ``args_fn(i) -> tuple`` gives call ``i`` its own inputs (warm-up calls
-    ``-warmup .. -1``, timed calls ``0 .. iters - 1``); every input is built
-    before the first call, so that building them is not timed."""
-    on_card = torch.device(device).type == "cuda"
+    ``-(warmup + 1) .. -1``, timed calls ``0 .. iters - 1``); every input is
+    built before the first call, so that building them is not timed."""
     get = args_fn if args_fn is not None else (lambda i: args)
-    inputs = [get(i) for i in range(-warmup, iters)]
-    for a in inputs[:warmup]:
+    inputs = [get(i) for i in range(-(warmup + 1), iters)]
+    for a in inputs[: warmup + 1]:
         fn(*a)
-    force_completion(device if on_card else "cpu")
-    timed = iter(inputs[warmup:])
+    timed = iter(inputs[warmup + 1:])
     batches = max(1, min(batches, iters))
     per = [iters // batches + (1 if i < iters % batches else 0) for i in range(batches)]
     batch_ms = []
     for count in per:
-        if on_card:
-            batch_ms.append(cuda_ms(lambda: fn(*next(timed)), reps=count, warmup=0))
-        else:
-            t0 = time.perf_counter()
-            for _ in range(count):
-                fn(*next(timed))
-            batch_ms.append(1e3 * (time.perf_counter() - t0) / count)
+        force_completion(device)
+        t0 = time.perf_counter()
+        for _ in range(count):
+            fn(*next(timed))
+        force_completion(device)
+        batch_ms.append(1e3 * (time.perf_counter() - t0) / count)
     return {
         "mean_ms": sum(m * c for m, c in zip(batch_ms, per)) / iters,
         "spread_ms": max(batch_ms) - min(batch_ms),
         "iters": iters,
-        "timer": "cuda_events" if on_card else "host_clock",
+        "timer": "host_clock",
     }
 
 

@@ -23,9 +23,10 @@ Card runs, under ``--card``:
   against ``runs/config4_s1/`` and ``s2_config4/`` against
   ``runs/config4_250k/``;
 - the same runs again with the JAX package's random draws (threefry, the
-  network and the split noise): ``s1_8000_threefry/`` against
-  ``runs/s1_ceiling_r4b/`` and ``s2_config4_threefry/`` against
-  ``runs/config4_250k/``.
+  network and the split noise), each against the TPU run of its name
+  without the suffix: ``s1_8000_threefry/``, ``s1_30000_threefry/``,
+  ``s1_config4_15000_threefry/``, ``s2_flagship_threefry/`` and
+  ``s2_config4_threefry/``.
 
 Stage 2's first step is printed beside the TPU's (it follows from the
 initial network alone).
@@ -52,10 +53,13 @@ S2_PSNR_DB = 1.0
 S2_LOSS_RTOL = 0.05
 FLOOR_CPU = ROOT / "runs" / "acceptance_truth" / "floor_jax_cpu.json"
 STAGE1 = {"s1_8000": "s1_ceiling_r4b", "s1_30000": "acceptance_s1",
-          "s1_config4_15000": "config4_s1", "s1_8000_threefry": "s1_ceiling_r4b"}
+          "s1_config4_15000": "config4_s1", "s1_8000_threefry": "s1_ceiling_r4b",
+          "s1_30000_threefry": "acceptance_s1", "s1_config4_15000_threefry": "config4_s1"}
 STAGE2 = {"s2_flagship": "config3_100k_r5", "s2_config4": "config4_250k",
-          "s2_config4_threefry": "config4_250k"}
-FLOORED = {"s2_flagship": ROOT / "runs" / "floor_100k.json"}  # the floor of its scene
+          "s2_config4_threefry": "config4_250k", "s2_flagship_threefry": "config3_100k_r5"}
+# The floor of each flagship run's scene.
+FLOORED = {name: ROOT / "runs" / "floor_100k.json"
+           for name in ("s2_flagship", "s2_flagship_threefry")}
 
 
 def rows(path: Path) -> list:

@@ -10,7 +10,9 @@ def cuda_ms(fn, reps: int, warmup: int) -> float:
     """Card time per call of ``fn``, CUDA events around ``reps`` calls.  The
     card first sleeps ~50 ms while the host queues the calls, so a kernel
     shorter than its wrapper's host time runs back to back and is timed on
-    the card, not at the host's pace."""
+    the card, not at the host's pace.  For kernels only: a whole host-bound
+    call (a render, a step) would start up to 50 ms of its host work before
+    the start event, unseen; ``obs.profiling.time_fn`` times those."""
     import torch
 
     for _ in range(warmup):

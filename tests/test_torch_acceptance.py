@@ -264,4 +264,4 @@ def test_committed_card_runs_are_within_their_tolerances(capsys, name):
     out = capsys.readouterr().out
     assert "missing" not in out and ok and all(ok), out
     assert len(ok) == {"floor": 2, "s2_flagship": 8, "s2_config4": 6,
-                       "s2_config4_threefry": 6}.get(name, 2)
+                       "s2_config4_threefry": 6, "s2_flagship_threefry": 8}.get(name, 2)

@@ -116,7 +116,7 @@ def test_profiling_helpers_on_cpu(tmp_path):
     calls = []
     stats = profiling.time_fn(lambda x: calls.append(x), 3, warmup=2, iters=5, batches=2,
                               device="cpu")
-    assert calls == [3] * 7
+    assert calls == [3] * 8
     assert stats["iters"] == 5 and stats["timer"] == "host_clock"
     assert stats["mean_ms"] >= 0 and stats["spread_ms"] >= 0
     profiling.force_completion("cpu")
