@@ -91,6 +91,17 @@ Phases, each printed with its wall time and bounded by a watchdog:
    against its plain version, its time and its bound.  It runs after the
    measure phases so that the serve, train and measure phases follow the
    same work as before these tiles existed.
+12b. large_tiles: the same at 5 x 320x180 with 40, 48, 56 and 64 px tiles
+   (``LARGE_TILES``): K1 and K4's forward against their plain versions
+   (``last`` identical), K2 and K4's backward from that ``last`` as in
+   compare_bwd; K1 and K2 at the training shapes at 48 and 64 px
+   (``LARGE_TIMED``), each against its plain version, with its time, its
+   plain version's (one run) and its bound; then ``train`` for one step
+   and ``run_inference`` for one timestep, at full width, with
+   ``binning_overrides={"tile": 64}`` and with
+   ``binning_overrides={"exact_tie_order": False}`` (32 px), every count
+   zeroed before each and read after: K1, K2 and the routing once in the
+   step, K1 once per render, nothing else.
 13. train_options: ``train`` at full width, 2 timesteps, from the same
    start each time: ``view_batching="vmap"`` and ``"map"`` (five renders
    per step; its per-step losses within 1e-5 relative of vmap's) and
@@ -264,7 +275,8 @@ mode, each with the launches of its paths; the forwards also with their
 time and bound at the training shapes, ``train_ms`` and
 ``train_bound_ms``; K1 and K2 also at the stage-1 shape, ``stage1_ms`` and
 ``stage1_bound_ms``; K2 and K4's backward also at 8 and 24 px tiles at
-the training shapes, ``tiles``; K1, K2 and the routing also at the bench
+the training shapes, and K1 and K2 at 48 and 64 px there, ``tiles``; K1,
+K2 and the routing also at the bench
 shape, ``bench_*``), then the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; nothing is
 caught and continued.  Imports nothing of JAX.
@@ -297,6 +309,9 @@ NEW_TRAIN_TIMESTEPS = 2     # depth cut of train_manual / train_padded
 NEW_TRAIN_ITERATIONS = 2
 CHANNELS = (3, 9)      # colour channels K4 and K5 are compared at
 NEW_BWD_TILES = (8, 24)  # the backward body's tiles besides 16 and 32 (px)
+LARGE_TILES = (40, 48, 56, 64)  # the bodies' tiles above 32 px
+LARGE_TIMED = (48, 64)          # of them, timed at the training shapes
+LARGE_PATH_TILE = 64            # large_tiles: the train step and served timestep
 OPTION_TIMESTEPS = 2     # train_options: timesteps per run
 STAGING_ITERATIONS = 6   # train_options: sequence iterations per staging mode
 CLI_FRAMES = 3           # cli: frames 0..2 of the sequence, T = 2 trainable
@@ -369,6 +384,12 @@ PTXAS_NAMES = {
     "manual_bwd_kernelILi3ELi24E": "composite_manual_bwd tile 24",
     "manual_bwd_kernelILi9ELi8E": "composite_manual_bwd C=9 tile 8",
     "manual_bwd_kernelILi9ELi24E": "composite_manual_bwd C=9 tile 24",
+    **{f"{k}_kernelILi3ELi{t}E": f"{n} tile {t}" for t in LARGE_TILES
+       for k, n in (("composite_fwd", "composite_fwd"), ("composite_bwd", "composite_bwd"),
+                    ("manual_fwd", "composite_manual_fwd"),
+                    ("manual_bwd", "composite_manual_bwd"))},
+    **{f"{k}_kernelILi9ELi{t}E": f"{n} C=9 tile {t}" for t in LARGE_TILES
+       for k, n in (("manual_fwd", "composite_manual_fwd"), ("manual_bwd", "composite_manual_bwd"))},
     "route_pairs_kernelILi10ELb0E": "route_pairs",
     "route_pairs_kernelILi10ELb1E": "route_pairs padded",
     "route_pairs_kernelILi16ELb1E": "route_pairs R=16 padded",
@@ -630,7 +651,7 @@ def padded_bytes_in(kin) -> int:
     return 4 * (int((kin[2] - kin[1]).sum()) * rec + 2 * kin[1].numel())
 
 
-def measure_fwd(label, fwd, fwd_plain, kin, geo, out, bytes_in, time_plain=True):
+def measure_fwd(label, fwd, fwd_plain, kin, geo, out, bytes_in, time_plain=True, plain_reps=2):
     """A forward kernel's outputs ``out`` on ``kin`` against its plain
     version, the kernel's CUDA-event time (and the plain version's), and its
     bound from ``bytes_in`` and the work this input needs.  Returns (numbers,
@@ -641,7 +662,8 @@ def measure_fwd(label, fwd, fwd_plain, kin, geo, out, bytes_in, time_plain=True)
     err = compare(out, ref)
     check_errors(err, label)
     ms = cuda_ms(lambda: fwd(*kin, **geo), reps=20, warmup=3)
-    plain_ms = cuda_ms(lambda: fwd_plain(*kin, **geo), reps=2, warmup=1) if time_plain else None
+    plain_ms = (cuda_ms(lambda: fwd_plain(*kin, **geo), reps=plain_reps, warmup=plain_reps // 2)
+                if time_plain else None)
     v, c = out[0].shape[:2]
     evals, contribs = int(n_eval.sum()), int(n_contrib.sum())
     bound = fwd_bound(c, v, geo["width"] * geo["height"], evals, contribs, bytes_in)
@@ -812,10 +834,12 @@ def train_path(name, cloud, views, tcfg, expected, n_steps, per_step=1):
     return counts, log
 
 
-def compare_table_bwd(where, case, bwd, bwd_plain, impl):
+def compare_table_bwd(where, case, bwd, bwd_plain, impl, refs=None):
     """A table kernel's backward and the routing against their plain
     versions, the ``CompositeTable`` backward ``impl`` against its plain
-    twin, and the backward + routing run twice, bitwise identical."""
+    twin, and the backward + routing run twice, bitwise identical.
+    ``refs``: a dict that keeps the plain backward's rows and the plain
+    twin's d(table) for a later call on equal inputs, which reuses them."""
     import torch
 
     import splatpu_torch.render.route as route
@@ -823,19 +847,25 @@ def compare_table_bwd(where, case, bwd, bwd_plain, impl):
     from splatpu_torch.tools.measure import row_scaled_err
 
     kin, geo, cot = case["kin"], case["geo"], case["cot"]
-    rows = bwd(*kin, *case["fwd"], *cot, **geo)
-    torch.cuda.synchronize()
-    rows_ref = bwd_plain(*kin, *case["fwd"], *cot, **geo)
-    pos = route.pos_of_slot_of(case["offsets"], kin[1], case["lane"])
-    routed = route.route_pairs_cuda(rows, pos, case["offsets"], case["counts"])
-    routed_ref = route.route_pairs_plain(rows, pos, case["offsets"], case["counts"])
-    d_table = {}
-    for key in (impl, ("plain", impl[1])):
+
+    def d_table_of(key):
         table = kin[0].clone().requires_grad_(True)
         outs = CompositeTable.apply(table, kin[4], *kin[1:4], case["offsets"],
                                     case["counts"], case["lane"], geo, key)
         torch.autograd.backward(outs[:3], cot)
-        d_table[key[0]] = table.grad
+        return table.grad
+
+    rows = bwd(*kin, *case["fwd"], *cot, **geo)
+    torch.cuda.synchronize()
+    refs = {} if refs is None else refs
+    if "rows" not in refs:
+        refs["rows"] = bwd_plain(*kin, *case["fwd"], *cot, **geo)
+        refs["d_table"] = d_table_of(("plain", impl[1]))
+    rows_ref = refs["rows"]
+    pos = route.pos_of_slot_of(case["offsets"], kin[1], case["lane"])
+    routed = route.route_pairs_cuda(rows, pos, case["offsets"], case["counts"])
+    routed_ref = route.route_pairs_plain(rows, pos, case["offsets"], case["counts"])
+    d_table = {"cuda": d_table_of(impl), "plain": refs["d_table"]}
     again = route.route_pairs_cuda(bwd(*kin, *case["fwd"], *cot, **geo), pos,
                                    case["offsets"], case["counts"])
     torch.cuda.synchronize()
@@ -951,6 +981,40 @@ def compare_padded_case(where, args, cams, binning):
     print(f"  {where}: backward + routing bitwise identical across two runs", flush=True)
 
 
+def compare_tile(args, cams, tile):
+    """K1 and K4's forward at ``tile`` against their plain versions
+    (``last`` identical), and K2 and K4's backward from that ``last``, held
+    as in compare_bwd.  K4's plain versions are K1's and K2's walk, so
+    where K4's inputs, forward outputs and cotangents equal K1's, their
+    outputs are held against the plain outputs already computed."""
+    import torch
+
+    import splatpu_torch.render.composite as composite
+    from splatpu_torch.render.api import demand_binning, measure_binning_demand
+
+    b = demand_binning(*measure_binning_demand(args, cams, tile=tile), tile=tile)
+    seen, refs = (), {}
+    for kernel, label, fwd_name, bwd_name in (("grid", "K2", "composite_fwd", "composite_bwd"),
+                                              ("manual", "K4", "composite_manual_fwd",
+                                               "composite_manual_bwd")):
+        case = table_case(args, cams, dataclasses.replace(b, kernel=kernel),
+                          getattr(composite, f"{fwd_name}_cuda"))
+        torch.cuda.synchronize()
+        where = f"{label} {cams.width}x{cams.height}, V={cams.num_views}, tile {tile}"
+        inputs = (*case["kin"], *case["out"], *case["cot"], case["offsets"], case["counts"],
+                  case["lane"])
+        if seen and all(map(torch.equal, seen, inputs)):
+            print(f"  {where}: inputs, outputs and cotangents bitwise K1's; the plain outputs"
+                  f" reused", flush=True)
+        else:
+            seen = inputs
+            refs = {"fwd": getattr(composite, f"{fwd_name}_plain")(*case["kin"], **case["geo"])}
+        check_errors(compare(case["out"], refs["fwd"]), f"{where}, forward")
+        compare_table_bwd(where, case, getattr(composite, f"{bwd_name}_cuda"),
+                          getattr(composite, f"{bwd_name}_plain"), ("cuda", kernel), refs)
+        del case
+
+
 def table_bwd_bound(kin, geo, last, n_live):
     """A table backward's work and bound: (evaluations, live steps, bytes,
     FP32 ops, bytes ms, ops ms).  Bytes: the table, each pair's gid, the
@@ -968,19 +1032,32 @@ def table_bwd_bound(kin, geo, last, n_live):
             1e3 * b_ops / PEAK_FP32_FLOPS)
 
 
-def measure_bwd_tile(label, case, fwd_plain, bwd, bwd_plain):
+def measure_bwd_tile(label, case, fwd_plain, bwd, bwd_plain, time_plain=False, n_live=None):
     """A table backward at ``case``'s tile: its rows against the plain
-    version's (1e-4 scaled per row), its time and its bound there."""
+    version's (1e-4 scaled per row), its time and its bound there; with
+    ``time_plain`` the plain version's time too (the run compared, timed).
+    ``n_live``: the forward's contributions per pixel, if already counted."""
     import torch
 
     from splatpu_torch.tools.measure import cuda_ms, row_scaled_err
 
     kin, geo, cot, (tfin, last) = case["kin"], case["geo"], case["cot"], case["fwd"]
-    *_, n_live = fwd_plain(*kin, **geo, with_counts=True)
+    if n_live is None:
+        *_, n_live = fwd_plain(*kin, **geo, with_counts=True)
     run = lambda: bwd(*kin, tfin, last, *cot, **geo)  # noqa: E731
     rows = run()
     torch.cuda.synchronize()
-    rows_ref = bwd_plain(*kin, tfin, last, *cot, **geo)
+    ref = {}
+
+    def run_plain():
+        ref["rows"] = bwd_plain(*kin, tfin, last, *cot, **geo)
+
+    plain_ms = None
+    if time_plain:
+        plain_ms = cuda_ms(run_plain, reps=1, warmup=0)
+    else:
+        run_plain()
+    rows_ref = ref.pop("rows")
     check_rows(label, {"rows": row_scaled_err(rows, rows_ref)})
     err = float((rows - rows_ref).abs().max())
     del rows_ref
@@ -988,13 +1065,74 @@ def measure_bwd_tile(label, case, fwd_plain, bwd, bwd_plain):
     evals, live, b_bytes, b_ops, t_bytes, t_ops = table_bwd_bound(kin, geo, last, n_live)
     bound = max(t_bytes, t_ops)
     v, p, rec = kin[0].shape[0], kin[1].shape[1], kin[0].shape[2]
-    print(f"  {label}: {ms:.4f} ms/launch; bound {bound:.4f} ms (bytes {b_bytes} ->"
+    plain = f", plain {plain_ms:.2f} ms" if time_plain else ""
+    print(f"  {label}: {ms:.4f} ms/launch{plain}; bound {bound:.4f} ms (bytes {b_bytes} ->"
           f" {t_bytes:.4f} ms, of them {4 * v * p * rec} the rows of every budget slot, which"
           f" the wrapper zeroes; FP32 ops {b_ops} -> {t_ops:.4f} ms); pairs"
           f" {int(kin[3][:, -1].sum())} of {v * p} slots, evaluations {evals}, live {live}",
           flush=True)
-    return {"ms": ms, "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "max_abs_err": err}
+    out = {"ms": ms, "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "max_abs_err": err}
+    if time_plain:
+        out["plain_ms"] = plain_ms
+    return out
+
+
+def large_tiles_path(dev, args, cloud, views, net, head, base_cfg):
+    """The large_tiles phase (module docstring).  Returns (K1's numbers by
+    tile, K2's by tile, {path: (counts, stats or log)})."""
+    import torch
+
+    import splatpu_torch.render.composite as composite
+    from splatpu_torch.render.api import demand_binning, measure_binning_demand
+    from splatpu_torch.train.stage2 import Stage2Config
+
+    t0 = time.perf_counter()
+    cams = rig_cams(dev, *COMPARE_SIZE, 5)
+    for tile in LARGE_TILES:
+        compare_tile(args, cams, tile)
+        print(f"  (tile {tile} compared: {time.perf_counter() - t0:.2f} s into the phase)",
+              flush=True)
+    k1_tiles, k2_tiles = {}, {}
+    cams = rig_cams(dev, *SERVE_SIZE, 5)
+    for tile in LARGE_TIMED:
+        b = demand_binning(*measure_binning_demand(args, cams, tile=tile), tile=tile)
+        case = bwd_case(args, cams, dev, binning=b)
+        kin = case["kin"]
+        k1, n_live = measure_fwd(f"K1 tile {tile} at the training shapes (budget {b.max_pairs})",
+                                 composite.composite_fwd_cuda, composite.composite_fwd_plain, kin,
+                                 case["geo"], case["out"], table_bytes_in(kin), plain_reps=1)
+        bound = k1["bound"]
+        k1_tiles[str(tile)] = {"ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": bound[0],
+                               "bound_by": "operations" if bound[2] >= bound[1] else "bytes",
+                               "max_abs_err": k1["err"]}
+        k2_tiles[str(tile)] = measure_bwd_tile(
+            f"K2 tile {tile} at the training shapes", case, composite.composite_fwd_plain,
+            composite.composite_bwd_cuda, composite.composite_bwd_plain, time_plain=True,
+            n_live=n_live)
+        del case, kin
+        print(f"  (tile {tile} timed: {time.perf_counter() - t0:.2f} s into the phase)", flush=True)
+    torch.cuda.synchronize()
+
+    out = {}
+    expected = ("composite_fwd", "composite_bwd", "route_pairs")
+    one_step = dict(total_iterations=1, timestep_count=1)
+    for name, overrides in ((f"tile{LARGE_PATH_TILE}", {"tile": LARGE_PATH_TILE}),
+                            ("tie_order_off", {"exact_tie_order": False})):
+        print(f"  train_{name}: 1 step, binning_overrides {overrides}", flush=True)
+        out[f"train_{name}"] = train_path(
+            f"train_{name}", cloud, views[:1],
+            dataclasses.replace(base_cfg, binning_overrides=overrides, **one_step), expected, 1)
+        config = Stage2Config(timestep_count=1, renderer="cuda", quirk_compat=head["quirk_compat"],
+                              binning_overrides=overrides)
+        print(f"  serve_{name}: 1 timestep + t=0, binning_overrides {overrides}", flush=True)
+        counts, stats = serve_path(f"serve_{name}", net, cloud, config, "composite_fwd", 1)
+        b = stats["binning"]
+        if (b.tile, b.exact_tie_order) != (overrides.get("tile", 32),
+                                           overrides.get("exact_tie_order", True)):
+            fail(f"serve_{name}: served with tile {b.tile}, exact_tie_order {b.exact_tie_order}")
+        out[f"serve_{name}"] = (counts, stats)
+    return k1_tiles, k2_tiles, out
 
 
 def options_paths(cloud, views, base_cfg):
@@ -2948,22 +3086,9 @@ def main() -> int:
     # The 8 and 24 px tiles run after the serve, train and measure phases,
     # so that those run after the same work as before these tiles existed.
     with phase("bwd_tiles", 300):
-        w, h = COMPARE_SIZE
-        cams5 = rig_cams(dev, w, h, 5)
+        cams5 = rig_cams(dev, *COMPARE_SIZE, 5)
         for tile in NEW_BWD_TILES:
-            b = demand_binning(*measure_binning_demand(args, cams5, tile=tile), tile=tile)
-            for kernel, label, fwd_name, bwd_name in (("grid", "K2", "composite_fwd", "composite_bwd"),
-                                                      ("manual", "K4", "composite_manual_fwd",
-                                                       "composite_manual_bwd")):
-                case = table_case(args, cams5, dataclasses.replace(b, kernel=kernel),
-                                  getattr(composite, f"{fwd_name}_cuda"))
-                torch.cuda.synchronize()
-                where = f"{label} {w}x{h}, V=5, tile {tile}"
-                ref = getattr(composite, f"{fwd_name}_plain")(*case["kin"], **case["geo"])
-                check_errors(compare(case["out"], ref), f"{where}, forward")
-                compare_table_bwd(where, case, getattr(composite, f"{bwd_name}_cuda"),
-                                  getattr(composite, f"{bwd_name}_plain"), ("cuda", kernel))
-                del case, ref
+            compare_tile(args, cams5, tile)
         k2_tiles, k4_tiles = {}, {}
         cams5 = rig_cams(dev, *SERVE_SIZE, 5)
         tile_binnings = {tile: demand_binning(*measure_binning_demand(args, cams5, tile=tile),
@@ -2982,6 +3107,12 @@ def main() -> int:
                 composite.composite_manual_fwd_plain, composite.composite_manual_bwd_cuda,
                 composite.composite_manual_bwd_plain)
             del case
+
+    # The tiles above 32 px, after the phases that time the others.
+    with phase("large_tiles", 180):
+        k1_large, k2_large, large = large_tiles_path(dev, args, cloud, views, net, head, base_cfg)
+        served.update({k: v for k, v in large.items() if k.startswith("serve_")})
+        trained.update({k: v for k, v in large.items() if k.startswith("train_")})
 
     # These phases run after the measure phases, so that the kernels are
     # timed after the same work as before the phases existed.
@@ -3067,10 +3198,10 @@ def main() -> int:
     kernels = [
         kernel_entry("composite_fwd", "splatpu_torch/csrc/composite_fwd.cu",
                      "splatpu/render/exact.py:856 (_fwd_kernel_grid)", by_path("composite_fwd"),
-                     **k1, train=k1_train, stage1=k1_s1, bench=k1_b),
+                     **k1, train=k1_train, tiles=k1_large, stage1=k1_s1, bench=k1_b),
         kernel_entry("composite_bwd", "splatpu_torch/csrc/composite_bwd.cu",
                      "splatpu/render/exact.py:994 (_bwd_kernel_grid)", by_path("composite_bwd"),
-                     **k2, tiles=k2_tiles, stage1=k2_s1, bench=k2_b),
+                     **k2, tiles={**k2_tiles, **k2_large}, stage1=k2_s1, bench=k2_b),
         kernel_entry("route_pairs", "splatpu_torch/csrc/route_pairs.cu",
                      "splatpu/render/exact.py:1320 (_cumsum_pairs_pallas)", routes_exact, **k3,
                      bench=k3_b),

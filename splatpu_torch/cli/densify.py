@@ -49,7 +49,7 @@ def add_binning_flags(p: argparse.ArgumentParser) -> None:
     """The binning-budget flags; a flag left out keeps the sized default."""
     g = p.add_argument_group("binning budgets")
     g.add_argument("--tile", type=int, default=None,
-                   help="pixels per tile side (8, 16, 24 or 32)")
+                   help="pixels per tile side, a multiple of 8 up to 64")
     g.add_argument("--max-pairs", type=int, default=None,
                    help="total (tile, gaussian) pair budget per render")
     g.add_argument("--max-span", type=int, default=None,

@@ -8,8 +8,8 @@
 // tile's pixels as exact.py::_grad_contrib writes them; the opacity row is
 // sum(dpower) / opacity where opacity > 0.  The walk is
 // composite_common.cuh's backward body; this file instantiates it for 1..5
-// channels at 8, 16, 24 and 32 px tiles (32, 64, 192 and 256 threads of
-// bwd_pix(tile) = 2, 4, 3 and 4 pixels).
+// channels at every multiple of 8 from 8 to 64 px (bwd_threads(tile)
+// threads of bwd_pix(tile) pixels: 32 of 2 at 8 px ... 512 of 8 at 64).
 
 #include "composite_common.cuh"
 
@@ -29,8 +29,8 @@ __global__ void __launch_bounds__(bwd_threads(TILE), bwd_min_blocks(TILE, C))
 extern "C" {
 
 // Launches the backward composite on `stream` over a (num_tiles, V) grid of
-// bwd_threads(tile) threads, tile 8, 16, 24 or 32; `d_rows` must be zeroed by the
-// caller.  Returns cudaGetLastError() (0 on success).
+// bwd_threads(tile) threads, tile a multiple of 8 up to 64; `d_rows` must be
+// zeroed by the caller.  Returns cudaGetLastError() (0 on success).
 int splatpu_composite_bwd(const void* table, const void* gid, const void* start,
                           const void* end, const void* bg, const void* tfinal,
                           const void* last, const void* g_img, const void* g_depth,

@@ -29,8 +29,9 @@
 // size_t: V * P * REC passes 2^31 above 2^24 pairs.
 //
 // Forward.  2 pixels per thread in consecutive rows of one column, 8 x 8
-// pixels per warp, one block per 16 px square of a tile (a 32 px tile is
-// four blocks that walk the same segment) or per 8 or 24 px tile.  Per
+// pixels per warp, one block per 8, 16 or 24 px tile, per 16 px square of a
+// 32, 48 or 64 px tile (4, 9 or 16 blocks that walk the same segment), or
+// per 8 px square of a 40 or 56 px tile (25 or 49 one-warp blocks).  Per
 // batch each warp keeps only the pairs whose alpha >= 1/255 ellipse can
 // reach its 8 x 8 pixels (lane j tests pair j, one ballot), so a warp walks
 // the pairs near it, not the whole tile's.  A thread keeps its pixels' T,
@@ -41,9 +42,11 @@
 // padded to a multiple of 4 floats, so a pair's geometry is one 16-byte
 // and one 8-byte shared load, broadcast to the warp.
 //
-// Backward.  Several pixels per thread (one column, rows ROWS apart): 4 at
-// 16 and 32 px tiles, 3 at 24 px, 2 at 8 px, so a block is whole warps.  It starts at the tile's largest `last`, since pairs behind
-// it have zero gradient, and a warp skips the pairs behind its own largest.
+// Backward.  Several pixels per thread (one column, rows ROWS apart): 2 at
+// 8 px tiles, 4 at 16, 32 and 48 px, 3 at 24, 5 at 40, 7 at 56 and 8 at 64,
+// so a block is whole warps and whole columns.  It starts at the tile's
+// largest `last`, since pairs behind it have zero gradient, and a warp
+// skips the pairs behind its own largest.
 // A pair belongs to one (tile, view), so one block owns its row; the sum
 // over the tile's pixels is formed in three fixed-order steps: each thread
 // adds its pixels' rows in registers, each warp sums its lanes with a
@@ -226,7 +229,9 @@ __device__ __forceinline__ void stage_store(float (&s)[BATCH][S], const float (&
 
 // The forward's launch shape.  A block holds a fwd_side(TILE)-px square
 // of its tile (a 32 px tile is 4 blocks of 16 px that walk the same
-// segment, so each leaves as soon as its own pixels are done), each thread
+// segment, so each leaves as soon as its own pixels are done; 40 and 56 px
+// tiles, which 16 does not divide, take 8 px squares, since their whole
+// tile would be 800 or 1,568 threads), each thread
 // FWD_PIX pixels in consecutive rows of one column, each warp an 8 x 8
 // pixel square (FWD_WARP_W columns by 32 / FWD_WARP_W threads' rows).
 // FWD_BATCH pairs per shared-memory batch, one per lane.  Blocks per SM the
@@ -237,22 +242,29 @@ __device__ __forceinline__ void stage_store(float (&s)[BATCH][S], const float (&
 constexpr int FWD_BATCH = 32;
 constexpr int FWD_PIX = 2;
 constexpr int FWD_WARP_W = 8;
-__host__ __device__ constexpr int fwd_side(int tile) { return tile == 32 ? 16 : tile; }
+__host__ __device__ constexpr int fwd_side(int tile) {
+  return tile <= 24 ? tile : tile % 16 == 0 ? 16 : 8;
+}
 __host__ __device__ constexpr int fwd_blocks_per_tile(int tile) {
   return (tile / fwd_side(tile)) * (tile / fwd_side(tile));
 }
 __host__ __device__ constexpr int fwd_threads(int tile) {
   return fwd_side(tile) * fwd_side(tile) / FWD_PIX;
 }
+// Blocks per SM for the launch bounds of a block of `threads` threads:
+// 768 threads' worth up to 5 channels, 512 for 6 to 9, and at least one.
+__host__ __device__ constexpr int min_blocks(int threads, int c) {
+  return (c <= 5 ? 768 : 512) / threads > 1 ? (c <= 5 ? 768 : 512) / threads : 1;
+}
 __host__ __device__ constexpr int fwd_min_blocks(int tile, int c) {
-  return (c <= 5 ? 768 : 512) / fwd_threads(tile);
+  return min_blocks(fwd_threads(tile), c);
 }
 __host__ __device__ constexpr int fwd_stride(int rec) { return (rec + 3) / 4 * 4; }
 
-// The tiles both bodies take: those of JAX's exact kernels up to 32 px.
-// with_tile calls fn(std::integral_constant<int, TILE>{}) for the TILE of
-// the set that equals `tile`; false if none does.
-using FwdTiles = std::integer_sequence<int, 8, 16, 24, 32>;
+// The tiles both bodies take: every multiple of 8 up to 64 px.  with_tile
+// calls fn(std::integral_constant<int, TILE>{}) for the TILE of the set
+// that equals `tile`; false if none does.
+using FwdTiles = std::integer_sequence<int, 8, 16, 24, 32, 40, 48, 56, 64>;
 using BwdTiles = FwdTiles;
 template <int... TILES, typename Fn>
 bool with_tile(std::integer_sequence<int, TILES...>, int tile, Fn&& fn) {
@@ -444,17 +456,22 @@ __device__ __forceinline__ void composite_fwd_body(const Walk& w, const FwdOut& 
 }
 
 // The backward's launch shape: bwd_pix(tile) pixels of one column per
-// thread, so whole warps: 4 at 32 px (256 threads, 8 warps) and 16 px (64,
-// 2 warps), 3 at 24 px (192, 6 warps), 2 at 8 px (32, one warp); and
-// BWD_BATCH pairs per shared-memory batch.  Blocks per SM the registers
-// must leave room for (launch bounds): 768 threads up to 5 channels, which
-// caps a thread at 85 registers; 512, so 128 registers, for the 6- to
-// 9-channel state (24 px: 384, so 170).
+// thread, so whole warps and whole columns: 4 at 32 px (256 threads, 8
+// warps) and 16 px (64, 2 warps), 3 at 24 px (192, 6 warps), 2 at 8 px (32,
+// one warp); 5 at 40 px (320, 10 warps), 4 at 48 px (576, 18 warps), 7 at
+// 56 px (448, 14 warps), 8 at 64 px (512, 16 warps); and BWD_BATCH pairs
+// per shared-memory batch.  Blocks per SM the registers must leave room
+// for (launch bounds): 768 threads up to 5 channels, which caps a thread at
+// 85 registers; 512, so 128 registers, for the 6- to 9-channel state (24
+// px: 384, so 170); and at least one block, so 65,536 registers over a
+// 48, 56 or 64 px block's 576, 448 or 512 threads at any channel count.
 constexpr int BWD_BATCH = 32;
-__host__ __device__ constexpr int bwd_pix(int tile) { return tile == 8 ? 2 : tile == 24 ? 3 : 4; }
+__host__ __device__ constexpr int bwd_pix(int tile) {
+  return tile == 8 ? 2 : tile == 24 ? 3 : tile == 40 ? 5 : tile == 56 ? 7 : tile == 64 ? 8 : 4;
+}
 __host__ __device__ constexpr int bwd_threads(int tile) { return tile * tile / bwd_pix(tile); }
 __host__ __device__ constexpr int bwd_min_blocks(int tile, int c) {
-  return (c <= 5 ? 768 : 512) / bwd_threads(tile);
+  return min_blocks(bwd_threads(tile), c);
 }
 
 

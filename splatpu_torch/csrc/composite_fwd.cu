@@ -5,7 +5,7 @@
 // tile's [start, end) pairs, records gathered by gid from the per-Gaussian
 // table, at most 5 colour channels (the grid kernel's limit).  The walk is
 // composite_common.cuh's forward body; this file instantiates it for 1..5
-// channels at 8, 16, 24 and 32 px tiles (fwd_blocks_per_tile(tile)
+// channels at every multiple of 8 from 8 to 64 px (fwd_blocks_per_tile(tile)
 // blocks of fwd_threads(tile) threads of 2 pixels each per tile).
 
 #include "composite_common.cuh"
@@ -27,8 +27,8 @@ __global__ void __launch_bounds__(fwd_threads(TILE), fwd_min_blocks(TILE, C))
 extern "C" {
 
 // Launches the composite on `stream` over a (num_tiles *
-// fwd_blocks_per_tile(tile), V) grid of fwd_threads(tile) threads, tile 8,
-// 16, 24 or 32; returns cudaGetLastError() (0 on success).
+// fwd_blocks_per_tile(tile), V) grid of fwd_threads(tile) threads, tile a
+// multiple of 8 up to 64; returns cudaGetLastError() (0 on success).
 int splatpu_composite_fwd(const void* table, const void* gid, const void* start,
                           const void* end, const void* bg, void* image,
                           void* depth, void* tfinal, void* last, int V, int N,

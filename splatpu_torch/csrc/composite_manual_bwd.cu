@@ -10,7 +10,7 @@
 // (tile, view), so the block that owns it writes its row once, and only the
 // tile's own pairs are written: no read-modify-write and no atomics.  The
 // walk is composite_common.cuh's backward body, instantiated here for 1..9
-// channels at 8, 16, 24 and 32 px tiles.
+// channels at every multiple of 8 from 8 to 64 px.
 
 #include "composite_common.cuh"
 
@@ -30,8 +30,8 @@ __global__ void __launch_bounds__(bwd_threads(TILE), bwd_min_blocks(TILE, C))
 extern "C" {
 
 // Launches K4's backward on `stream` over a (num_tiles, V) grid of
-// bwd_threads(tile) threads, tile 8, 16, 24 or 32, C of 1..9; `d_rows` must be
-// zeroed by the caller.  Returns cudaGetLastError() (0 on success).
+// bwd_threads(tile) threads, tile a multiple of 8 up to 64, C of 1..9;
+// `d_rows` must be zeroed by the caller.  Returns cudaGetLastError() (0 on success).
 int splatpu_composite_manual_bwd(const void* table, const void* gid, const void* start,
                                  const void* end, const void* bg, const void* tfinal,
                                  const void* last, const void* g_img, const void* g_depth,

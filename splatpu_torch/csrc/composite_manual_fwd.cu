@@ -7,7 +7,7 @@
 // colour channels (NREC - R_COLOR0 of the TPU kernels) and any pair budget,
 // where the grid kernel stops at 5 channels and 2^24 pairs.  The walk is
 // composite_common.cuh's forward body, instantiated here for 1..9 channels
-// at 8, 16, 24 and 32 px tiles.  (The TPU kernel's chunk DMA starts on
+// at every multiple of 8 from 8 to 64 px.  (The TPU kernel's chunk DMA starts on
 // chunk boundaries and masks the neighbouring tiles' pairs; where a batch
 // starts does not change which pairs a pixel sees, so this kernel stages
 // from the segment's start, as K1 does.)
@@ -31,8 +31,9 @@ __global__ void __launch_bounds__(fwd_threads(TILE), fwd_min_blocks(TILE, C))
 extern "C" {
 
 // Launches K4's forward on `stream` over a (num_tiles *
-// fwd_blocks_per_tile(tile), V) grid of fwd_threads(tile) threads, tile 8,
-// 16, 24 or 32, C of 1..9; returns cudaGetLastError() (0 on success).
+// fwd_blocks_per_tile(tile), V) grid of fwd_threads(tile) threads, tile a
+// multiple of 8 up to 64, C of 1..9; returns cudaGetLastError() (0 on
+// success).
 int splatpu_composite_manual_fwd(const void* table, const void* gid, const void* start,
                                  const void* end, const void* bg, void* image, void* depth,
                                  void* tfinal, void* last, int V, int N, int P, int C,

@@ -6,8 +6,9 @@ exact path's composite: ``"grid"`` (the default; the port's K1/K2, at most
 5 colour channels and 2^24 pairs, as the JAX grid kernel) or ``"manual"``
 (K4: up to 9 channels and any budget).  The JAX config's other TPU knobs
 (``scan``, ``subchunks``) have no counterpart: the Hopper composites walk
-each tile's pairs serially.  Nor has ``exact_tie_order``: the port always
-breaks (tile, depth) ties by gaussian id, the reference's default.
+each tile's pairs serially.  ``exact_tie_order`` is the JAX package's: True
+breaks (tile, depth) sort ties by gaussian id (the reference's order),
+False keeps tied pairs in emission order (class A before class B).
 ``chunk_pairs`` is the unit budgets are rounded to and, in the padded pair
 stream, the alignment of every tile's segment.
 
@@ -44,6 +45,8 @@ class BinningConfig:
     chunk_pairs: int = 128      # budget rounding unit; padded segment alignment
     kernel: str = "grid"        # exact-path composite: "grid" or "manual"
     cull_tiles: bool = True     # drop pairs whose alpha bound is < 1/255
+    exact_tie_order: bool = True  # (tile, depth) ties by gaussian id; False:
+                                  # a stable sort on the key alone
 
     def padded_capacity(self, num_tiles: int) -> int:
         """Worst-case aligned stream length: every non-empty tile wastes at

@@ -13,9 +13,11 @@ Two pairs of kernels gather their records from the per-Gaussian table:
   1..9 channels (``NREC - R_COLOR0`` of the TPU kernels) and any pair
   budget, with the channel count a template parameter.
 
-The forward kernels: tiles of 8, 16, 24 or 32 px (``FWD_TILES``; any
-other tile is refused before a launch), one block per (tile, view), or per
-16 px square of a 32 px tile; each thread walks 2 pixels of one column
+The forward kernels: tiles of every multiple of 8 from 8 to 64 px
+(``FWD_TILES``; any other tile is refused before a launch, by the plain
+versions too), one block per (tile, view) of 8, 16 or 24 px, or per 16 px
+square of a 32, 48 or 64 px tile, or per 8 px square of a 40 or 56 px
+tile; each thread walks 2 pixels of one column
 front to back over the tile's sorted pairs, records gathered by ``gid``
 into shared memory a batch ahead; each warp skips the pairs that cannot
 reach its 8 x 8 pixels; block exit once every pixel is done; T is carried
@@ -35,9 +37,10 @@ Outputs: image (V, C, H, W), depth (V, H, W), final transmittance (V, H, W)
 and the int32 position of the last contributing pair (V, H, W), -1 where
 none contributed.
 
-The backward kernels: one block per (tile, view) of 8, 16, 24 or 32 px,
-each thread walking 2, 4, 3 or 4 pixels of one column back to front from
-their forward ``last``,
+The backward kernels: one block per (tile, view), each thread walking
+``bwd_pix(tile)`` pixels of one column (2 at 8 px, 4 at 16, 32 and 48, 3
+at 24, 5 at 40, 7 at 56, 8 at 64) back to front from their forward
+``last``,
 per-pair sums over the tile's pixels in registers, then a reduce-scatter of
 warp shuffles and a fixed-order sum across warps, no atomics.  They take the forward inputs plus the forward's final T and
 ``last`` and the cotangents ``g_img`` (V, C, H, W), ``g_depth`` and
@@ -61,7 +64,7 @@ from splatpu_torch.core.projection import ALPHA_MAX, ALPHA_MIN, TRANSMITTANCE_EP
 REC_GEOM = 7
 MAX_C = 5          # K1/K2, as the TPU grid kernel's packed output
 MAX_C_MANUAL = 9   # K4: the TPU kernels' NREC - R_COLOR0
-FWD_TILES = (8, 16, 24, 32)  # the tiles the forward body takes (px)
+FWD_TILES = (8, 16, 24, 32, 40, 48, 56, 64)  # the tiles the forward body takes (px)
 BWD_TILES = FWD_TILES  # the tiles the backward body takes (px)
 
 LAUNCHES = 0             # kernel launches made by composite_fwd_cuda (K1)

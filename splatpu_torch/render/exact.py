@@ -12,7 +12,11 @@ The sort.  The JAX package sorts two u32 words (``num_keys=2``).  Here one
 int64 holds both: ``((key - 2**31) << 32) | val``.  Biasing the key into the
 signed range first matters: at 720p / 32 px tiles the key reaches 2^31 and
 above (920 tiles leave 22 depth bits), and the 0xFFFFFFFF sentinel would
-otherwise wrap negative and sort first.
+otherwise wrap negative and sort first.  Under
+``BinningConfig(exact_tie_order=False)`` the JAX package sorts the key word
+alone with a stable sort (``num_keys=1``), so tied pairs keep their
+emission order, class A's before class B's; here a stable sort of the
+int64 key (no bias needed: it holds the u32 as is) carries the values.
 
 The render.  ``CompositeTable`` is the port of the ``_composite_table``
 custom VJP: its forward is the forward composite, its backward the
@@ -216,9 +220,13 @@ def _bin(splats: Splats2D, opacities, width, height, config: BinningConfig,
     else:
         key_flat, val_flat = emit(sel_all, gids, geom_all[2], v_all)
 
-    fused, _ = torch.sort(((key_flat - (1 << 31)) << 32) | val_flat)
-    keys_all = (fused >> 32) + (1 << 31)
-    vals_all = fused & 0xFFFFFFFF
+    if config.exact_tie_order:
+        fused, _ = torch.sort(((key_flat - (1 << 31)) << 32) | val_flat)
+        keys_all = (fused >> 32) + (1 << 31)
+        vals_all = fused & 0xFFFFFFFF
+    else:
+        keys_all, order = torch.sort(key_flat, stable=True)
+        vals_all = val_flat[order]
     if keys_all.shape[0] >= mp:
         keys_sorted, vals_sorted = keys_all[:mp], vals_all[:mp]
     else:

@@ -9,7 +9,10 @@ both trees' kernels timed by one method in turns.
 whose ``splatpu_torch/csrc/`` has the sources of ``KERNELS`` with this
 tree's C entry points.  Those sources (with their own
 ``composite_common.cuh``) are built into ``OTHER_ROOT/splatpu_torch/_build/``
-and loaded with ctypes.
+and loaded with ctypes; this tree's same sources are built too, the same
+way, into ``_build/compare_this/``.  The tool prints both builds' wall
+times and, for every kernel instance both trees compile, whether ptxas
+gave it the same registers, shared memory and spills.
 
 The inputs are config 3's 100,585-Gaussian cloud at rest and 3 colour
 channels.  The forwards run at the served shapes (the five 1280x720 orbit
@@ -22,8 +25,8 @@ pixel (at most ``EXPLAIN``) the tool walks the pixel's segment again:
 alpha by the plain version's operations on the card, T on the host in
 float32 and in float64; it prints the first pair where the two stop
 decisions part, with the value T (1 - alpha) in each precision beside
-1e-4.  The backwards run at the training shapes at 32 and 16 px tiles
-(``TILES``, the tiles both trees take), from this tree's forward's final T
+1e-4.  The backwards run at the training shapes at 32, 16, 24 and 8 px
+tiles (``TILES``, the tiles both trees take), from this tree's forward's final T
 and ``last``, on cotangents drawn from ``default_rng(0)``: whether the two
 trees' rows are bitwise equal, and each one's error against the plain
 version (scaled per row).  Then both trees' kernels are timed by
@@ -37,8 +40,10 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import re
 import statistics
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -60,7 +65,7 @@ ROOT = Path(__file__).resolve().parents[2]
 CLOUD = ROOT / "runs" / "s1_ceiling_r4b" / "densified_cloud.npz"
 SIZE = (1280, 720)
 VIEWS = 5
-TILES = (32, 16)  # the backwards' tiles
+TILES = (32, 16, 24, 8)  # the backwards' tiles
 ROUNDS = 4
 EXPLAIN = 5
 # name -> (source, C entry point, this tree's wrapper, plain version, kind,
@@ -195,6 +200,49 @@ def report(name, got, ref, kin, geo, is_padded) -> None:
               flush=True)
 
 
+def ptxas_lines(log: str) -> dict:
+    """Kernel instance -> its ptxas resource lines (registers, shared
+    memory, spills), from nvcc's -Xptxas -v output.  An instance is named
+    from its kernel's name on (``composite_fwd_kernelILi3ELi32E...``): the
+    mangled prefix of the anonymous namespace differs between trees."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            m = re.search(r"[a-z_]+_kernelI\w+", mangled)
+            name = m.group(0) if m else mangled
+            out[name] = []
+        elif name and ("spill" in line or "Used" in line):
+            out[name].append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def compare_builds(other_csrc: Path, other_lib: Path):
+    """Both trees' ``KERNELS`` sources built the same way, timed; the
+    kernel instances both compile, with ptxas lines equal or not.  Returns
+    the other tree's library."""
+    logs, secs = {}, {}
+    for who, csrc, lib_path in (
+        ("other", other_csrc, other_lib),
+        ("this", _build.CSRC_DIR, _build.BUILD_DIR / "compare_this" / "libthis.so"),
+    ):
+        t0 = time.perf_counter()
+        lib, logs[who] = _build.build_library([csrc / k[0] for k in KERNELS.values()], lib_path)
+        secs[who] = time.perf_counter() - t0
+        if who == "other":
+            other = lib
+    print(f"nvcc of the {len(KERNELS)} composite sources, one process each: other"
+          f" {secs['other']:.2f} s, this {secs['this']:.2f} s", flush=True)
+    lines = {who: ptxas_lines(log) for who, log in logs.items()}
+    both = sorted(set(lines["other"]) & set(lines["this"]))
+    differ = [k for k in both if lines["other"][k] != lines["this"][k]]
+    print(f"ptxas: {len(lines['other'])} kernel instances in other, {len(lines['this'])} in this;"
+          f" of the {len(both)} in both, {len(differ)} with other resource lines", flush=True)
+    for k in differ:
+        print(f"  {k}: other {lines['other'][k]}; this {lines['this'][k]}", flush=True)
+    return other
+
+
 def in_turns(calls) -> None:
     """Both trees' calls timed in ``ROUNDS`` turned rounds; every time and
     each median printed."""
@@ -266,9 +314,8 @@ def main(argv=None) -> int:
         print("FAIL: needs a CUDA device", flush=True)
         return 1
     dev = torch.device("cuda")
-    csrc = a.other_root / "splatpu_torch" / "csrc"
-    lib, _ = _build.build_library([csrc / k[0] for k in KERNELS.values()],
-                                  a.other_root / "splatpu_torch" / "_build" / "libcompare.so")
+    lib = compare_builds(a.other_root / "splatpu_torch" / "csrc",
+                         a.other_root / "splatpu_torch" / "_build" / "libcompare.so")
     args = activate_cloud(compact_cloud(load_cloud(CLOUD, device=dev)))
     rig = rig_cameras(*SIZE)
     rig_cams = lambda n=None: Camera(  # noqa: E731

@@ -110,6 +110,73 @@ def test_ties_without_gid_order():
     check_identical(cloud, 64, 64, tile=16, max_span=64, max_pairs=4096)
 
 
+def tie_cloud():
+    """Wide Gaussians (the big class at span_small=4) and small ones in
+    pairs at one mean, the small one of the higher id: equal (tile, depth)
+    keys whose gaussian-id order (class B's wide one first) and emission
+    order (class A's small one first) disagree."""
+    cloud = np_cloud(12, 160, scale_range=(0.02, 0.05))
+    cloud["log_scales"][:80] = np.log(np.float32(0.3))
+    cloud["means"][80:] = cloud["means"][:80]
+    return cloud
+
+
+def test_ties_in_emission_order_without_exact_tie_order():
+    """exact_tie_order=False: a stable sort on the key alone, as the JAX
+    package's num_keys=1 sort; every integer identical to JAX's, and the
+    order differs there from the gid-broken one."""
+    cfg = dict(tile=16, span_small=4, max_span=64, max_pairs=1 << 13)
+    emitted, _ = check_identical(tie_cloud(), 96, 64, exact_tie_order=False, **cfg)
+    by_gid, _ = check_identical(tie_cloud(), 96, 64, exact_tie_order=True, **cfg)
+    assert int((np_of(emitted.counts) > 4).sum()) > 0, "no Gaussian took the big class"
+    for f in ("start", "end", "offsets", "counts"):
+        np.testing.assert_array_equal(np_of(getattr(emitted, f)), np_of(getattr(by_gid, f)))
+    moved = np_of(emitted.gid) != np_of(by_gid.gid)
+    assert moved.sum() >= 2, "no tie whose order the flag changes"
+
+
+def test_exact_tie_order_through_overrides():
+    """The flag reaches the binning the trainers and the server build from
+    ``binning_overrides``."""
+    from splatpu_torch.render.api import demand_binning, resolve_binning
+
+    ov = {"exact_tie_order": False, "tile": 48}
+    for b in (resolve_binning(5000, overrides=ov), demand_binning(20000, 9, overrides=ov)):
+        assert b.exact_tie_order is False and b.tile == 48
+
+
+@pytest.mark.parametrize("tile", [48, 64])
+def test_large_tile_budgets_and_integers_match_jax(tile):
+    """At 48 and 64 px on a 1280x720 camera: default_config's and
+    demand_binning's budgets, the depth-bit split and the binning integers
+    at the default budget, each as JAX's."""
+    from splatpu.render.api import default_config as jax_default_config
+    from splatpu.render.api import demand_binning as jax_demand_binning
+    from splatpu.render.binning import _depth_bits_for as jax_depth_bits_for
+    from splatpu.render.binning import tile_grid as jax_tile_grid
+    from splatpu_torch.render.api import default_config, demand_binning
+    from splatpu_torch.render.binning import depth_key_tiles
+    from _torch_scenes import torch_camera
+
+    n = 3000
+    for got, ref in ((default_config(n, tile=tile), jax_default_config(n, tile=tile)),
+                     (demand_binning(421000, 37, tile=tile),
+                      jax_demand_binning(421000, 37, tile=tile))):
+        for f in dataclasses.fields(got):
+            assert getattr(got, f.name) == getattr(ref, f.name), f.name
+    w2c, K = np_lookat((0.0, 0.0, -3.0), 1280, 720, 0.82 * 1280)
+    tx, ty = jax_tile_grid(jax_camera(w2c, K, 1280, 720), tile)
+    bits = _depth_bits_for(depth_key_tiles(torch_camera(w2c, K, 1280, 720), tile))
+    assert bits == jax_depth_bits_for(tx * ty) == (23 if tile == 48 else 24)
+    cfg = dataclasses.asdict(default_config(n, tile=tile))
+    cloud = np_cloud(1, n, extent=1.6, scale_range=(0.01, 0.05))
+    got, _ = check_identical(cloud, 1280, 720, eye=(0.0, 0.0, -3.0), focal=0.82 * 1280, **cfg)
+    # At 48 px this scene overflows the 4-per-Gaussian budget; the clipped
+    # stream and the flags are held identical too.
+    assert int(got.total_pairs) > 0
+    assert np_of(got.end)[tx * ty // 2:].max() > 0, "no pairs in the lower tiles"
+
+
 def test_config_fields_match_reference():
     # The port keeps the reference's defaults for every field it carries.
     ref = JBinningConfig()

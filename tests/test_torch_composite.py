@@ -112,6 +112,23 @@ def test_non_tile_aligned_and_tile32():
     assert_matches(port_views(cloud, cams, bg, cfg), jax_views(cloud, cams, bg, "pallas", cfg))
 
 
+def test_render_without_exact_tie_order_matches_jax():
+    """``exact_tie_order=False`` through render: wide and small Gaussians in
+    pairs at one mean (equal (tile, depth) keys whose gid order and
+    emission order disagree) against JAX's pallas render with the flag; the
+    flag changes the image there."""
+    cloud = np_cloud(12, 160, scale_range=(0.02, 0.05))
+    cloud["log_scales"][:80] = np.log(np.float32(0.3))
+    cloud["means"][80:] = cloud["means"][:80]
+    cams = [(*np_lookat((0.3, -0.2, -4.0), 96, 64), 96, 64)]
+    bg = np.array([0.1, 0.2, 0.3], np.float32)
+    cfg = dict(CFG, tile=16, span_small=4, max_pairs=1 << 13, exact_tie_order=False)
+    out = port_views(cloud, cams, bg, cfg)
+    assert_matches(out, jax_views(cloud, cams, bg, "pallas", cfg))
+    by_gid = port_views(cloud, cams, bg, dict(cfg, exact_tie_order=True))
+    assert float((out.image - by_gid.image).abs().max()) > 1e-3
+
+
 def test_empty_scene_is_background():
     cloud = np_cloud(6, 16)
     cloud["means"] -= np.array([0.0, 0.0, 20.0], np.float32)
@@ -202,11 +219,12 @@ def test_dispatch_and_guards():
         composite_fwd_plain(z((1, 4, 14)), *args[1:4], z(7), **geo)
 
 
-@pytest.mark.parametrize("tile", [4, 12, 20, 40])
+@pytest.mark.parametrize("tile", [4, 12, 20, 72])
 def test_tile_outside_forward_set_refused(tile):
-    """The composite takes the forward kernels' tiles, 8, 16, 24 and 32 px
-    (the tiles of JAX's exact kernels up to 32): the input check, which the
-    CUDA wrappers run before they launch, refuses any other."""
+    """The composite takes the forward kernels' tiles, every multiple of 8
+    from 8 to 64 px: the input check, which the CUDA wrappers run before
+    they launch, refuses any other (no test, script, run or CLI help of
+    either package names one)."""
     z = torch.zeros
     args = (z((1, 4, 10)), z((1, 8), dtype=torch.int32), z((1, 1), dtype=torch.int32),
             z((1, 1), dtype=torch.int32), z(3))

@@ -1,8 +1,9 @@
 """The CUDA composite kernels (K1/K2, K4 under kernel="manual", K5 of the
 padded path; forward and backward) and the routing kernel against their
-plain PyTorch versions, on the card: the forward body at 8, 16, 24 and 32
-px tiles with ``last`` identical, the backward body at the same tiles,
-1 to 9 channels and image sizes that cut the last tiles; the routing in
+plain PyTorch versions, on the card: the forward body at every multiple
+of 8 from 8 to 64 px with ``last`` identical, the backward body at the same
+tiles, 1 to 9 channels and image sizes that cut the last tiles (100x70,
+scaled with the tile above 32 px); the routing in
 both slot modes, 8 to 16 rows, slot runs up to 512, dropped and clipped
 slots; each bitwise identical across two launches.
 
@@ -312,25 +313,35 @@ def test_routing_modes_match_plain(cuda, padded, r):
     assert bool((ends > slot_map.shape[1]).any())
 
 
+LARGE_TILES = (40, 48, 56, 64)
 BWD_CASES = [("composite_bwd", 16, c) for c in (1, 3, 5)] + [
     ("composite_bwd", 32, c) for c in (1, 3, 5)] + [
     ("composite_manual_bwd", t, c) for t in (16, 32) for c in (1, 3, 5, 9)] + [
     ("padded_bwd", 16, c) for c in (1, 3, 5, 9)] + [
     ("composite_bwd", t, c) for t in (8, 24) for c in (1, 3, 5)] + [
-    ("composite_manual_bwd", t, c) for t in (8, 24) for c in (3, 9)]
+    ("composite_manual_bwd", t, c) for t in (8, 24) for c in (3, 9)] + [
+    ("composite_bwd", t, c) for t in LARGE_TILES for c in (1, 3, 5)] + [
+    ("composite_manual_bwd", t, c) for t in LARGE_TILES for c in (3, 9)]
+
+
+def frame(tile):
+    """The body tests' image: 100x70, which no tile divides, scaled with
+    tiles above 32 px to the tile grid 32 px tiles make of it (4 x 3 tiles,
+    the last column and row cut)."""
+    return (100, 70) if tile <= 32 else (100 * tile // 32, 70 * tile // 32)
 
 
 @pytest.mark.parametrize("kernel,tile,channels", BWD_CASES)
 def test_backward_body_matches_plain(cuda, kernel, tile, channels):
-    """Each backward kernel against its plain version on 100x70 images
-    (no tile size divides them), rows 1e-4 scaled per row, bitwise
-    identical across two launches."""
+    """Each backward kernel against its plain version on ``frame(tile)``
+    images, rows 1e-4 scaled per row, bitwise identical across two
+    launches."""
     import splatpu_torch.render.padded as padded
     from splatpu_torch.render.binning import build_pair_stream
     from splatpu_torch.render.composite import pack_table
 
     rng = np.random.default_rng(tile * 10 + channels)
-    args, cams = scene(tile + channels, 2500, 2, 100, 70, 3, cuda)
+    args, cams = scene(tile + channels, 2500, 2, *frame(tile), 3, cuda)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda)  # noqa: E731
     # Means spread across the whole image, so the cut tiles hold pairs.
     spread = torch.tensor([2.5, 2.0, 1.0], device=cuda)
@@ -372,14 +383,15 @@ def test_backward_body_matches_plain(cuda, kernel, tile, channels):
     assert bool((last[:, :, w - 1] >= 0).any()) and bool((last[:, h - 1, :] >= 0).any())
 
 
-def forward_scene(seed, channels, device):
-    """2,000 splats spread over most of a 100x70 frame (no tile size divides
-    it) and, in front of view 0, a wall of 200 opaque ones: at every tile
-    size the renders hold empty tiles, segments of several hundred pairs,
-    pixels whose T reaches 1e-4 within their first batch of 32 pairs, and
-    live pixels in the cut last tile column and row."""
+def forward_scene(seed, channels, device, size=(100, 70)):
+    """2,000 splats spread over most of a ``size`` frame (100x70: no tile
+    size divides it; ``frame(tile)``) and, in front of view 0, a wall of 200
+    opaque ones: at every tile size the renders hold empty tiles, segments
+    of several hundred pairs, pixels whose T reaches 1e-4 within their
+    first batch of 32 pairs, and live pixels in the cut last tile column
+    and row."""
     rng = np.random.default_rng(seed)
-    args, cams = scene(seed, 2000, 2, 100, 70, channels, device)
+    args, cams = scene(seed, 2000, 2, *size, channels, device)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
     n = 200
     q = rng.normal(size=(n, 4))
@@ -396,7 +408,9 @@ def forward_scene(seed, channels, device):
 
 
 FWD_CASES = [("composite_fwd", t, c) for t in (8, 16, 24, 32) for c in (1, 3, 5)] + [
-    ("composite_manual_fwd", 32, c) for c in (1, 3, 9)] + [("padded_fwd", 16, c) for c in (3, 9)]
+    ("composite_manual_fwd", 32, c) for c in (1, 3, 9)] + [("padded_fwd", 16, c) for c in (3, 9)] + [
+    ("composite_fwd", t, c) for t in LARGE_TILES for c in (1, 3, 5)] + [
+    ("composite_manual_fwd", t, c) for t in LARGE_TILES for c in (3, 9)]
 
 
 @pytest.mark.parametrize("kernel,tile,channels", FWD_CASES)
@@ -409,7 +423,7 @@ def test_forward_body_matches_plain(cuda, kernel, tile, channels):
     from splatpu_torch.render.binning import build_pair_stream
     from splatpu_torch.render.composite import BWD_TILES, pack_table, untile
 
-    args, cams = forward_scene(tile + channels, channels, cuda)
+    args, cams = forward_scene(tile + channels, channels, cuda, frame(tile))
     v, h, w = cams.num_views, cams.height, cams.width
     bg = torch.linspace(0.1, 0.3, channels, device=cuda)
     if kernel == "padded_fwd":

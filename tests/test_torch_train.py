@@ -23,6 +23,7 @@ state carried across from a JAX checkpoint.
 """
 
 import dataclasses
+from fractions import Fraction
 from pathlib import Path
 
 import jax
@@ -301,7 +302,43 @@ def test_opt_state_reader_bit_exact():
             assert np.array_equal(g, w), jax.tree_util.keystr(path)
 
 
+ULPS = 2  # optax's float32 bias corrections against the correctly rounded (ulps)
+
+
+def nearest_f32(x: Fraction) -> np.float32:
+    """The float32 nearest the rational ``x`` (ties need not be broken: the
+    test's values are not halfway)."""
+    c = np.float32(float(x))
+    cands = (np.nextafter(c, np.float32(-np.inf)), c, np.nextafter(c, np.float32(np.inf)))
+    return min(cands, key=lambda f: abs(Fraction(float(f)) - x))
+
+
 def test_adam_step_from_checkpoint_matches_optax():
+    """One Adam step from the checkpoint's state (count 6,000 -> 6,001),
+    the port's against optax's on the same gradients.
+
+    The moments take the same float32 operations in the same order, so
+    ``mu`` and ``nu`` are held bitwise.  The bias corrections 1 - b^6001
+    come from two float32 pows: the port's (numpy) is held to the correctly
+    rounded value (``fractions.Fraction``), optax's (JAX's eager pow, as
+    its update runs here) to within ULPS ulps of it (two ulps less for
+    b = 0.999 on an AMD EPYC CPU).
+
+    The parameters p' = p + u, u = -lr (mu / bc1) / (sqrt(nu / bc2) + eps).
+    With eps32 = 2^-24 (float32's unit roundoff), elementwise:
+    - an ulp of a bias correction in [0.5, 1] is at most 2 eps32 of it, so
+      ULPS ulps of bc2 move nu / bc2 by 2 ULPS eps32 and its square root by
+      ULPS eps32 (adding eps only dilutes that), and ULPS ulps of bc1 move
+      u by 2 ULPS eps32: together 3 ULPS eps32 |u| = 6 eps32 |u|;
+    - each side rounds six operations (nu / bc2, sqrt, + eps, mu / bc1, the
+      quotient, the product with -lr), each by at most eps32 relative, so a
+      side is within 6.1 eps32 |u| of its exact u: 12.2 eps32 |u| apart;
+    - the learning rates (held to 1e-7 relative) may differ by d_lr |u|;
+    - each side rounds p + u, by at most eps32 (|p| + |u|).
+    So |p'_port - p'_optax| <= eps32 (21 |u| + 2 |p|) + d_lr |u|, with u
+    optax's update.  Relative to |p + u| no bound holds: where p and u
+    nearly cancel, an ulp of u is a large share of the sum (2.9e-11 against
+    a sum of 9.7e-6 was seen)."""
     ref = jax_opt_tree()
     raw = serialization.msgpack_restore(CKPT.read_bytes())["net_params"]
     params = {"fc_in": raw["fc_in"], "fc_out": raw["fc_out"],
@@ -322,18 +359,34 @@ def test_adam_step_from_checkpoint_matches_optax():
     adam = toptim.make_stage2_optimizer(tparams, 1e-3, warmup, total)
     adam.load_state(**load_stage2_opt_state(CKPT))
     lr = adam.step(tparams, state_dict_from_jax(grads))
-    assert lr == pytest.approx(float(joptim.warmup_cosine_schedule(1e-3, warmup, total)(6000)),
-                               rel=1e-7)
-    assert adam.count == int(new_state[0].count) == 6001
-    # Float32 Adam in both; pow() of the bias correction may differ by an ulp.
-    for name, got, wt in (
-        ("params", tparams, want), ("mu", adam.mu, new_state[0].mu), ("nu", adam.nu, new_state[0].nu),
-    ):
+    lr_jax = float(joptim.warmup_cosine_schedule(1e-3, warmup, total)(6000))
+    assert lr == pytest.approx(lr_jax, rel=1e-7)
+    count = int(new_state[0].count)
+    assert adam.count == count == 6001
+    for b, bc in zip((adam.b1, adam.b2), adam.bias_corrections(count)):
+        exact = nearest_f32(1 - Fraction(float(np.float32(b))) ** count)
+        bc_jax = np.asarray(1 - b ** jnp.asarray(count, jnp.int32))  # as optax's update
+        assert np.float32(bc) == exact, (b, bc, exact)
+        assert abs(int(exact.view(np.int32)) - int(bc_jax.view(np.int32))) <= ULPS, (b, bc_jax)
+    for name, got, wt in (("mu", adam.mu, new_state[0].mu), ("nu", adam.nu, new_state[0].nu)):
         g_tree = net_params_to_jax_tree(got)
         for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(wt), jax.tree.leaves(g_tree)):
             w = np.asarray(w)
-            np.testing.assert_allclose(g, w, rtol=2e-6, atol=1e-12,
-                                       err_msg=f"{name} {jax.tree_util.keystr(path)}")
+            assert g.dtype == w.dtype == np.float32
+            np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32),
+                                          err_msg=f"{name} {jax.tree_util.keystr(path)}")
+    eps32 = 2.0 ** -24
+    d_lr = abs(lr - lr_jax) / lr_jax
+    g_tree = net_params_to_jax_tree(tparams)
+    leaves = zip(jax.tree_util.tree_leaves_with_path(want), jax.tree.leaves(params),
+                 jax.tree.leaves(updates), jax.tree.leaves(g_tree))
+    for (path, w), p, u, g in leaves:
+        w, p, u = (np.asarray(x, np.float64) for x in (w, p, u))
+        bound = eps32 * (21 * np.abs(u) + 2 * np.abs(p)) + d_lr * np.abs(u)
+        excess = np.abs(g - w) - bound
+        assert (excess <= 0).all(), (
+            f"params {jax.tree_util.keystr(path)}: {int((excess > 0).sum())} elements over the"
+            f" bound, worst by {excess.max():.3e}")
 
 
 def test_view_staging_keeps_uint8_levels():
