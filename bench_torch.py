@@ -21,9 +21,11 @@ One untimed call before them reads the overflow and the pair count.
 
 Prints the card's name and power limit, the per-call mean and spread (and
 the first call's seconds, the kernels' build included, apart), each
-kernel's launches over the run and whether the render overflowed its pair
-budget, then as its last line ``bench.py``'s JSON object (the same keys,
-``vs_baseline`` against the same nominal 10 ms).  ``--chained N`` adds a
+kernel's launches over the run, whether the render overflowed its pair
+budget and whether the kernels came from the persistent cache
+(``obs/cache.py``, on for a card as in ``bench.py``), then as its last
+line ``bench.py``'s JSON object (the same keys, ``vs_baseline`` against the
+same nominal 10 ms).  ``--chained N`` adds a
 second JSON line for chains of N frames, as ``bench.py`` does.
 ``--profile N`` first prints the card's busy share and its kernels over N
 calls under ``torch.profiler``.
@@ -42,9 +44,11 @@ import time
 
 import torch
 
+from splatpu_torch import _build
 from splatpu_torch.core import prng
 from splatpu_torch.core.types import activate_cloud
 from splatpu_torch.data.synthetic import make_lookat_camera, make_random_cloud
+from splatpu_torch.obs.cache import enable_compilation_cache
 from splatpu_torch.obs.profiling import launch_counts, time_fn
 from splatpu_torch.render.api import default_config, render
 
@@ -123,6 +127,8 @@ def main(chained: int = 0, device=None, profile: int = 0) -> dict:
                          " pass --device cpu for bench.py's CPU size")
     if profile and device.type != "cuda":
         raise SystemExit("bench_torch: --profile reads the card's busy share; it needs the card")
+    if device.type == "cuda":
+        enable_compilation_cache()
     before = launch_counts()
     cloud, cam, config = scene(device)
     target = torch.zeros((3, cam.height, cam.width), device=device)
@@ -168,6 +174,9 @@ def main(chained: int = 0, device=None, profile: int = 0) -> dict:
           f" (a kernel build, where one runs, included)", flush=True)
     print(f"launches {json.dumps(launches)}", flush=True)
     print(f"overflowed {json.dumps(overflowed)}", flush=True)
+    if device.type == "cuda":
+        print(f"kernels: build_cached {json.dumps(_build.build_cached)}, loaded in"
+              f" {_build.build_seconds:.2f} s ({_build.library_path()})", flush=True)
     line = {
         "metric": "rasterize_fwd_bwd_ms_per_frame",
         "value": round(ms, 3),

@@ -7,9 +7,16 @@ check them.
 Phases, each printed with its wall time and bounded by a watchdog:
 
 1. device: require CUDA; print the card's name and power limit.
-2. build: compile ``splatpu_torch/csrc/*.cu`` with nvcc, one process per
-   source, all at once; print the registers of the kernels in
-   ``PTXAS_NAMES`` and fail if one is missing.
+2. build: with the persistent kernel cache on in a fresh temporary
+   directory (``$SPLATPU_TORCH_COMPILE_CACHE``, which the CLIs and the
+   bench called below and every child process then use), compile
+   ``splatpu_torch/csrc/*.cu`` with nvcc, one process per source, all at
+   once; print the cache key, the build's and each source's nvcc seconds
+   and the registers of the kernels in ``PTXAS_NAMES``, and fail if one is
+   missing.  Then one child process loads the library from that cache:
+   it must compile nothing, load the entry this process published and
+   run K1 on a fixed input (``CACHE_CASE``, binned on the CPU from a seed)
+   to outputs bitwise this process's (image, depth, final T, ``last``).
 3. prng: ``core/prng.py``'s draws on the card against the same draws on
    the CPU, bit for bit: ``split`` and ``random_bits`` of three keys,
    ``uniform`` at the network's and a cloud's shapes and bounds,
@@ -94,9 +101,12 @@ Phases, each printed with its wall time and bounded by a watchdog:
 12b. large_tiles: the same at 5 x 320x180 with 40, 48, 56 and 64 px tiles
    (``LARGE_TILES``): K1 and K4's forward against their plain versions
    (``last`` identical), K2 and K4's backward from that ``last`` as in
-   compare_bwd; K1 and K2 at the training shapes at 48 and 64 px
-   (``LARGE_TIMED``), each against its plain version, with its time, its
-   plain version's (one run) and its bound; then ``train`` for one step
+   compare_bwd; K1, K2 and K4's forward and backward at the training
+   shapes at each of those tiles, each against its plain version (K4's
+   against K1's and K2's plain outputs where its inputs, outputs and
+   cotangents are bitwise K1's), with its time and its bound, and at 48
+   and 64 px (``LARGE_TIMED``) the plain K1's and K2's time (one run);
+   then ``train`` for one step
    and ``run_inference`` for one timestep, at full width, with
    ``binning_overrides={"tile": 64}`` and with
    ``binning_overrides={"exact_tie_order": False}`` (32 px), every count
@@ -284,14 +294,18 @@ caught and continued.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import faulthandler
 import importlib.util
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -310,7 +324,7 @@ NEW_TRAIN_ITERATIONS = 2
 CHANNELS = (3, 9)      # colour channels K4 and K5 are compared at
 NEW_BWD_TILES = (8, 24)  # the backward body's tiles besides 16 and 32 (px)
 LARGE_TILES = (40, 48, 56, 64)  # the bodies' tiles above 32 px
-LARGE_TIMED = (48, 64)          # of them, timed at the training shapes
+LARGE_TIMED = (48, 64)          # of them, the plain K1 and K2 timed at the training shapes
 LARGE_PATH_TILE = 64            # large_tiles: the train step and served timestep
 OPTION_TIMESTEPS = 2     # train_options: timesteps per run
 STAGING_ITERATIONS = 6   # train_options: sequence iterations per staging mode
@@ -327,7 +341,8 @@ S1_OPTION_VIEWS = 4        # stage1_options: views per step
 S1_OPTION_ITERATIONS = (20, 40)  # stage1_options: checkpoint at the first, resume to the second
 S1_PATH_ITERATIONS = 4     # stage1_options: the K4 and K5 runs
 S1_CLI_ITERATIONS = (30, 40)     # cli_densify: first run, then resumed to
-DIST_STRIPS = (2, 4)       # dist_render: strips per view, one rank each
+DIST_STRIPS = (2,)         # dist_render: strips per view, one rank each (depth cut: 4 strips
+                           # repeat the check; tests/test_torch_tile_sharding.py holds them)
 DIST_ITERATIONS = 2        # dist_train, dist_2d: sequence iterations (config 3: 40)
 DIST_TIMESTEPS = 2         # dist_train, dist_2d: timesteps (config 3: 150)
 DIST_S1_ITERATIONS = 4     # dist_stage1: iterations (config 2: 30,000; JAX's test: 4)
@@ -350,6 +365,24 @@ ACCEPT4_STAGE2 = (2, 2)     # acceptance_config4: sequence iterations x timestep
 ACCEPT_FIRST_LOSS_RTOL = 1e-4  # the first stage-1 loss against the JAX package's on a CPU
 ACCEPT4_CAPACITY = 500_224  # stage 1's slots on the config-4 truth: the split noise's rows
 PRNG_SEEDS = (0, 7, 2**31)  # prng: the keys drawn on the card and on the CPU
+CACHE_CASE = (5, 2_000, 320, 180)  # build: the K1 check's seed, Gaussians, width, height
+# build: the child process that loads the library from the cache; argv: the
+# K1 input file, the output file.  torch is imported before the clock starts,
+# as in every caller of the library.
+CACHE_CHILD = """
+import json, sys, time
+import torch
+import chip_smoke
+from splatpu_torch import _build
+from splatpu_torch.obs.cache import enable_compilation_cache
+enable_compilation_cache()
+t0 = time.perf_counter()
+_build.load_library()
+load_s = time.perf_counter() - t0
+chip_smoke.cache_k1(sys.argv[1], "cuda", sys.argv[2])
+print(json.dumps({"build_cached": _build.build_cached, "compiled": sorted(_build.source_seconds),
+                  "load_s": load_s, "path": str(_build.library_path())}))
+"""
 DIST_TIMEOUT_S = 240       # every launch of ranks: its result within this, or it fails
 DIST_RENDERER = "cuda"     # the distributed phases' render path
 BIG_P = (1 << 24) + (1 << 20)  # gid slots of K4's large-budget call
@@ -1078,9 +1111,21 @@ def measure_bwd_tile(label, case, fwd_plain, bwd, bwd_plain, time_plain=False, n
     return out
 
 
+def tile_numbers(numbers) -> dict:
+    """``measure_fwd``'s numbers as an entry of a kernel's ``tiles``."""
+    bound = numbers["bound"]
+    out = {"ms": numbers["ms"], "bound_ms": bound[0],
+           "bound_by": "operations" if bound[2] >= bound[1] else "bytes",
+           "max_abs_err": numbers["err"]}
+    if numbers["plain_ms"] is not None:
+        out["plain_ms"] = numbers["plain_ms"]
+    return out
+
+
 def large_tiles_path(dev, args, cloud, views, net, head, base_cfg):
-    """The large_tiles phase (module docstring).  Returns (K1's numbers by
-    tile, K2's by tile, {path: (counts, stats or log)})."""
+    """The large_tiles phase (module docstring).  Returns the numbers by
+    tile of K1, K2, K4's forward and K4's backward, and {path: (counts,
+    stats or log)}."""
     import torch
 
     import splatpu_torch.render.composite as composite
@@ -1093,24 +1138,51 @@ def large_tiles_path(dev, args, cloud, views, net, head, base_cfg):
         compare_tile(args, cams, tile)
         print(f"  (tile {tile} compared: {time.perf_counter() - t0:.2f} s into the phase)",
               flush=True)
-    k1_tiles, k2_tiles = {}, {}
+    k1_tiles, k2_tiles, k4f_tiles, k4b_tiles = {}, {}, {}, {}
     cams = rig_cams(dev, *SERVE_SIZE, 5)
-    for tile in LARGE_TIMED:
+    for tile in LARGE_TILES:
+        timed = tile in LARGE_TIMED
         b = demand_binning(*measure_binning_demand(args, cams, tile=tile), tile=tile)
         case = bwd_case(args, cams, dev, binning=b)
-        kin = case["kin"]
+        kin, geo = case["kin"], case["geo"]
+        # The plain forward's outputs and counts, and the plain backward's
+        # rows, once each: K4's plain versions are K1's and K2's walk.
+        fwd_ref = composite.composite_fwd_plain(*kin, **geo, with_counts=True)
+        rows_ref = {}
+
+        def fwd_plain(*a, with_counts=False, **k):
+            return fwd_ref if with_counts else composite.composite_fwd_plain(*a, **k)
+
+        def bwd_plain(*a, **k):
+            rows_ref["rows"] = composite.composite_bwd_plain(*a, **k)
+            return rows_ref["rows"]
+
         k1, n_live = measure_fwd(f"K1 tile {tile} at the training shapes (budget {b.max_pairs})",
-                                 composite.composite_fwd_cuda, composite.composite_fwd_plain, kin,
-                                 case["geo"], case["out"], table_bytes_in(kin), plain_reps=1)
-        bound = k1["bound"]
-        k1_tiles[str(tile)] = {"ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": bound[0],
-                               "bound_by": "operations" if bound[2] >= bound[1] else "bytes",
-                               "max_abs_err": k1["err"]}
+                                 composite.composite_fwd_cuda, fwd_plain, kin, geo, case["out"],
+                                 table_bytes_in(kin), time_plain=timed, plain_reps=1)
+        k1_tiles[str(tile)] = tile_numbers(k1)
         k2_tiles[str(tile)] = measure_bwd_tile(
-            f"K2 tile {tile} at the training shapes", case, composite.composite_fwd_plain,
-            composite.composite_bwd_cuda, composite.composite_bwd_plain, time_plain=True,
-            n_live=n_live)
-        del case, kin
+            f"K2 tile {tile} at the training shapes", case, fwd_plain,
+            composite.composite_bwd_cuda, bwd_plain, time_plain=timed, n_live=n_live)
+        case4 = table_case(args, cams, dataclasses.replace(b, kernel="manual"),
+                           composite.composite_manual_fwd_cuda)
+        same = all(map(torch.equal, (*kin, *case["out"], *case["cot"]),
+                       (*case4["kin"], *case4["out"], *case4["cot"])))
+        print(f"  K4 tile {tile}: inputs, outputs and cotangents"
+              f" {'bitwise K1' if same else 'not bitwise K1'}'s", flush=True)
+        if not same:
+            fwd_plain, bwd_plain = (composite.composite_manual_fwd_plain,
+                                    composite.composite_manual_bwd_plain)
+        k4f, _ = measure_fwd(f"K4 fwd tile {tile} at the training shapes",
+                             composite.composite_manual_fwd_cuda, fwd_plain, case4["kin"],
+                             case4["geo"], case4["out"], table_bytes_in(case4["kin"]),
+                             time_plain=False)
+        k4f_tiles[str(tile)] = tile_numbers(k4f)
+        k4b_tiles[str(tile)] = measure_bwd_tile(
+            f"K4 bwd tile {tile} at the training shapes", case4, fwd_plain,
+            composite.composite_manual_bwd_cuda,
+            (lambda *a, **k: rows_ref["rows"]) if same else bwd_plain, n_live=n_live)
+        del case, case4, kin, fwd_ref, rows_ref
         print(f"  (tile {tile} timed: {time.perf_counter() - t0:.2f} s into the phase)", flush=True)
     torch.cuda.synchronize()
 
@@ -1132,7 +1204,7 @@ def large_tiles_path(dev, args, cloud, views, net, head, base_cfg):
                                            overrides.get("exact_tie_order", True)):
             fail(f"serve_{name}: served with tile {b.tile}, exact_tie_order {b.exact_tie_order}")
         out[f"serve_{name}"] = (counts, stats)
-    return k1_tiles, k2_tiles, out
+    return k1_tiles, k2_tiles, k4f_tiles, k4b_tiles, out
 
 
 def options_paths(cloud, views, base_cfg):
@@ -2714,6 +2786,81 @@ def bench_case(dev):
     return case
 
 
+def cache_case(path) -> None:
+    """The build phase's K1 input: ``make_random_cloud(key(seed), n)`` seen
+    by the bench's look-at camera at ``CACHE_CASE``'s size, binned on the
+    CPU at its demand budget; saved to ``path``."""
+    import torch
+
+    from splatpu_torch.core import prng
+    from splatpu_torch.core.types import activate_cloud, stack_cameras
+    from splatpu_torch.data.synthetic import make_lookat_camera, make_random_cloud
+    from splatpu_torch.render.api import demand_binning, measure_binning_demand
+    from splatpu_torch.render.exact import composite_inputs
+
+    seed, n, w, h = CACHE_CASE
+    args = activate_cloud(make_random_cloud(prng.key(seed), n, extent=1.2,
+                                            scale_range=(0.01, 0.04), device="cpu"))
+    cams = stack_cameras([make_lookat_camera(eye=(0, 0, -4.0), width=w, height=h, focal=0.8 * w,
+                                             device="cpu")])
+    _, k = composite_inputs(args, cams, demand_binning(*measure_binning_demand(args, cams)))
+    torch.save({"kin": [k["table"].detach(), k["gid"], k["start"], k["end"], torch.zeros(3)],
+                "geo": k["geometry"]}, path)
+
+
+def cache_k1(path, dev, out_path=None):
+    """K1 once on ``cache_case``'s input from ``path``; its outputs on the
+    host (saved to ``out_path`` where given)."""
+    import torch
+
+    import splatpu_torch.render.composite as composite
+
+    case = torch.load(path)
+    out = composite.composite_fwd_cuda(*(x.to(dev) for x in case["kin"]), **case["geo"])
+    out = [x.cpu() for x in out]
+    if out_path is not None:
+        torch.save(out, out_path)
+    return out
+
+
+def cache_check(dev) -> None:
+    """build (module docstring): the child process that loads the library
+    from the cache and runs K1, against this process's K1."""
+    import torch
+
+    from splatpu_torch import _build
+
+    with tempfile.TemporaryDirectory(prefix="splatpu_cache_k1_") as tmp:
+        cache_case(f"{tmp}/in.pt")
+        mine = cache_k1(f"{tmp}/in.pt", dev)
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", CACHE_CHILD, f"{tmp}/in.pt", f"{tmp}/out.pt"], cwd=ROOT,
+            capture_output=True, text=True, timeout=180)
+        wall = time.perf_counter() - t0
+        if child.returncode != 0:
+            fail(f"the cache's child process exited {child.returncode}:\n{child.stdout}"
+                 f"{child.stderr}")
+        got = json.loads(child.stdout.splitlines()[-1])
+        theirs = torch.load(f"{tmp}/out.pt")
+    print(f"  child process: build_cached {got['build_cached']}, compiled {got['compiled']},"
+          f" library loaded in {got['load_s']:.3f} s, process {wall:.2f} s in all", flush=True)
+    if not got["build_cached"] or got["compiled"]:
+        fail("the child process compiled instead of loading the cached library")
+    if got["path"] != str(_build.library_path()):
+        fail(f"the child loaded {got['path']}, not the entry {_build.library_path()}")
+    names = ("image", "depth", "final_T", "last")
+    differ = [k for k, a, b in zip(names, mine, theirs) if not torch.equal(a, b)]
+    seed, n, w, h = CACHE_CASE
+    print(f"  K1 on {n} Gaussians from key({seed}) at {w}x{h}: the child's outputs"
+          f" {'differ in ' + str(differ) if differ else 'bitwise this process'}'s; pixels drawn"
+          f" {int((mine[3] >= 0).sum())} of {w * h}", flush=True)
+    if differ or not all(bool(torch.isfinite(x).all()) for x in mine[:3]):
+        fail(f"K1 from the cached library: {differ} differ, or not finite")
+    if not (mine[3] >= 0).any():
+        fail("K1 on the cache check's input drew no pixel")
+
+
 def main() -> int:
     import torch
 
@@ -2760,9 +2907,22 @@ def main() -> int:
                                           " through PIL"),
             flush=True)
 
-    with phase("build", 200):
+    with phase("build", 300):
+        cache_dir = tempfile.mkdtemp(prefix="splatpu_kernels_")
+        atexit.register(shutil.rmtree, cache_dir, True)
+        os.environ["SPLATPU_TORCH_COMPILE_CACHE"] = cache_dir
+        from splatpu_torch.obs.cache import enable_compilation_cache
+
+        enable_compilation_cache()
+        if _build.cache_dir != Path(cache_dir).resolve():
+            fail(f"the cache is at {_build.cache_dir}, not $SPLATPU_TORCH_COMPILE_CACHE")
         _build.load_library()
-        print(f"  nvcc: {_build.build_seconds:.2f} s", flush=True)
+        if _build.build_cached:
+            fail("a fresh cache directory held the kernel library")
+        print(f"  nvcc: {_build.build_seconds:.2f} s, key {_build.build_meta['key']}", flush=True)
+        print("  nvcc wall by source (all at once): " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in sorted(_build.build_meta["nvcc_seconds"].items(),
+                                                key=lambda kv: -kv[1])), flush=True)
         regs = ptxas_summary(_build.build_log)
         for k, v in regs.items():
             print(f"  ptxas {k}: {v}", flush=True)
@@ -2771,6 +2931,7 @@ def main() -> int:
             fail(f"nvcc's log names no register count for {missing}")
         if re.search(r"[1-9]\d* bytes spill", _build.build_log):
             print("  (some instances spill: see the log's spill lines)", flush=True)
+        cache_check(dev)
 
     with phase("prng", 10):
         prng_check(dev)
@@ -3110,7 +3271,8 @@ def main() -> int:
 
     # The tiles above 32 px, after the phases that time the others.
     with phase("large_tiles", 180):
-        k1_large, k2_large, large = large_tiles_path(dev, args, cloud, views, net, head, base_cfg)
+        k1_large, k2_large, k4f_large, k4b_large, large = large_tiles_path(
+            dev, args, cloud, views, net, head, base_cfg)
         served.update({k: v for k, v in large.items() if k.startswith("serve_")})
         trained.update({k: v for k, v in large.items() if k.startswith("train_")})
 
@@ -3210,10 +3372,10 @@ def main() -> int:
                      " splatpu/render/pallas_composite.py:507-513", routes_padded, **k3p),
         kernel_entry("composite_manual_fwd", "splatpu_torch/csrc/composite_manual_fwd.cu",
                      "splatpu/render/exact.py:608 (_fwd_kernel)", by_path("composite_manual_fwd"),
-                     **k4f, train=k4f_train),
+                     **k4f, train=k4f_train, tiles=k4f_large),
         kernel_entry("composite_manual_bwd", "splatpu_torch/csrc/composite_manual_bwd.cu",
                      "splatpu/render/exact.py:679 (_bwd_kernel)", by_path("composite_manual_bwd"),
-                     **k4b, tiles=k4_tiles),
+                     **k4b, tiles={**k4_tiles, **k4b_large}),
         kernel_entry("padded_fwd", "splatpu_torch/csrc/padded_fwd.cu",
                      "splatpu/render/pallas_composite.py:113 (_fwd_kernel)",
                      by_path("padded_fwd"), **k5f, train=k5f_train),

@@ -15,8 +15,9 @@ Writes ``<sequence>/densify_metrics.jsonl`` and the compacted cloud
 ``cli.train`` of either package reads.  ``--mesh-tiles N`` renders each
 view as N row strips, one per rank: run as a rank of a process group of N
 ranks, or alone, and it starts the ranks on this host itself
-(``dist.launch``); rank 0 writes the metrics and the cloud.  The JAX
-package's compilation cache (``obs/cache.py``) has no counterpart here.
+(``dist.launch``); rank 0 writes the metrics and the cloud.  On a CUDA
+device the kernels come from the persistent cache (``obs/cache.py``), as
+the JAX package's compiled programs do from its compilation cache.
 
 ``add_binning_flags`` / ``binning_from_args`` are the binning-budget flags
 that ``cli/train.py`` shares.
@@ -28,6 +29,8 @@ import argparse
 import dataclasses
 import sys
 from pathlib import Path
+
+import torch
 
 from splatpu_torch.data.dataset import (
     get_scene_radius,
@@ -100,6 +103,10 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     p = parser()
     args = p.parse_args(argv)
+    if torch.device(args.device).type == "cuda":
+        from splatpu_torch.obs.cache import enable_compilation_cache
+
+        enable_compilation_cache()
     if args.mesh_tiles > 0 and args.views_per_step > 1:
         p.error("--views-per-step above 1 cannot be combined with --mesh-tiles (batch the views"
                 " or shard one view's tiles)")

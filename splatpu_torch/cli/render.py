@@ -17,6 +17,8 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+import torch
+
 
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="splatpu-torch-render")
@@ -33,6 +35,10 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    if torch.device(args.device).type == "cuda":
+        from splatpu_torch.obs.cache import enable_compilation_cache
+
+        enable_compilation_cache()
 
     from splatpu_torch.dynamics.deform import normalize_and_encode_means_and_rotations
     from splatpu_torch.dynamics.network import DeformationNet, net_config_for

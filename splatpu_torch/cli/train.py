@@ -28,6 +28,8 @@ import json
 import sys
 from pathlib import Path
 
+import torch
+
 from splatpu_torch.cli.densify import add_binning_flags, binning_from_args
 from splatpu_torch.data.dataset import load_metadata, load_timestep_views
 from splatpu_torch.dist.launch import main_on_ranks
@@ -92,6 +94,10 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     p = parser()
     args = p.parse_args(argv)
+    if torch.device(args.device).type == "cuda":
+        from splatpu_torch.obs.cache import enable_compilation_cache
+
+        enable_compilation_cache()
     ranks = args.mesh_cameras * args.mesh_tiles if args.mesh_cameras > 0 else 1
     if ranks > 1 and world()[1] == 1:
         return main_on_ranks(main, argv, ranks, args.device)

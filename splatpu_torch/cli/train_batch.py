@@ -34,6 +34,8 @@ import argparse
 import sys
 from pathlib import Path
 
+import torch
+
 from splatpu_torch.cli.densify import add_binning_flags, binning_from_args
 from splatpu_torch.dist.launch import main_on_ranks
 from splatpu_torch.dist.mesh import initialize_multihost, rank_device, world
@@ -73,6 +75,10 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     p = parser()
     args = p.parse_args(argv)
+    if torch.device(args.device).type == "cuda":
+        from splatpu_torch.obs.cache import enable_compilation_cache
+
+        enable_compilation_cache()
     processes = args.num_processes or 1
     if args.mesh_cameras > 0 and processes > 1:
         p.error("--mesh-cameras shards one process's sequences over ranks on its host; it"

@@ -12,7 +12,8 @@ rank computes on ``cuda:{rank % cards}`` and loads the kernels before
 ``fn`` runs: the library the calling process has loaded, if it has, else
 one build per host (``_build.load_library``: rank 0 builds, the other ranks
 wait at a barrier), so that no rank reads the build directory while
-another writes it.
+another writes it.  Where the calling process turned the persistent kernel
+cache on, every rank has it on too.
 
 ``fn`` must live at module level in an importable module (a child imports
 its module and nothing of the caller's).  Each rank's standard output and
@@ -57,7 +58,8 @@ def _die_with_parent() -> None:
         pass
 
 
-def _rank_main(fn, args, rank, nprocs, init_method, backend, device, log_path, results, library):
+def _rank_main(fn, args, rank, nprocs, init_method, backend, device, log_path, results, library,
+               cache):
     _die_with_parent()
     fd = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
     os.dup2(fd, 1)
@@ -68,14 +70,16 @@ def _rank_main(fn, args, rank, nprocs, init_method, backend, device, log_path, r
                       LOCAL_WORLD_SIZE=str(nprocs))
     torch.set_num_threads(1)
     try:
+        from splatpu_torch import _build
+
+        if cache:
+            _build.enable_cache(cache)
         on_card = torch.device(device).type == "cuda"
         if on_card:
             torch.cuda.set_device(rank % torch.cuda.device_count())
         dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=nprocs,
                                 timeout=TIMEOUT)
         if on_card:
-            from splatpu_torch import _build
-
             _build.adopt_library(library) if library else _build.load_library()
         out = fn(*args)
         results.put((rank, True, out))
@@ -100,15 +104,16 @@ def launch(fn, nprocs: int, args=(), rendezvous_dir=None, device="cuda",
     backend = default_backend(device, nprocs)
     from splatpu_torch import _build
 
-    library = (str(_build.LIBRARY) if torch.device(device).type == "cuda" and _build._lib
-               else None)
+    on_card = torch.device(device).type == "cuda"
+    library = str(_build.library_path()) if on_card and _build._lib else None
+    cache = str(_build.cache_dir) if _build.cache_dir is not None else None
     init_method = f"file://{rdv / ('rendezvous-' + uuid.uuid4().hex)}"
     logs = [rdv / f"rank{r}.log" for r in range(nprocs)]
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     procs = [
         ctx.Process(target=_rank_main, args=(fn, tuple(args), r, nprocs, init_method, backend,
-                                             str(device), str(logs[r]), results, library))
+                                             str(device), str(logs[r]), results, library, cache))
         for r in range(nprocs)
     ]
     for p in procs:

@@ -327,3 +327,14 @@ def build_on_rank() -> int:
 
     _build.load_library()
     return os.getpid()
+
+
+def library_on_rank() -> dict:
+    """Load the kernel library as ``build_on_rank`` does; this process's id,
+    the path it loaded and whether it came from the persistent cache."""
+    import os
+
+    from splatpu_torch import _build
+
+    _build.load_library()
+    return dict(pid=os.getpid(), path=str(_build.library_path()), cached=_build.build_cached)

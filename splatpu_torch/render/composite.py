@@ -54,8 +54,6 @@ padded composite of ``render/padded.py`` shares).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from splatpu_torch import _build
@@ -104,19 +102,6 @@ def _check_inputs(table, gid, start, end, bg, tiles_x, tiles_y, tile, max_c=MAX_
     return v, c
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load_library()
-    # Pointers and the stream as c_void_p: ctypes would otherwise pass each
-    # Python int as a 32-bit int and cut the pointer.
-    for fn, n_ptr, n_int in (
-        (lib.splatpu_composite_fwd, 9, 9), (lib.splatpu_composite_bwd, 11, 9),
-        (lib.splatpu_composite_manual_fwd, 9, 9), (lib.splatpu_composite_manual_bwd, 11, 9),
-    ):
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def _fwd_cuda(entry, max_c, table, gid, start, end, bg, tiles_x, tiles_y, tile, width, height):
     """Check the inputs, allocate the outputs and call one forward launcher."""
     _build.require_cuda(entry, (table, gid, start, end, bg))
@@ -126,7 +111,7 @@ def _fwd_cuda(entry, max_c, table, gid, start, end, bg, tiles_x, tiles_y, tile, 
     depth = torch.empty((v, height, width), dtype=torch.float32, device=dev)
     tfin = torch.empty_like(depth)
     last = torch.empty((v, height, width), dtype=torch.int32, device=dev)
-    lib = _lib()
+    lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = getattr(lib, f"splatpu_{entry}")(
@@ -364,7 +349,7 @@ def _bwd_cuda(entry, max_c, table, gid, start, end, bg, tfinal, last, g_img, g_d
     check_bwd_inputs(tfinal, last, g_img, g_depth, g_tf, v, c, width, height)
     p = gid.shape[1]
     d_rows = torch.zeros((v, p, table.shape[2]), dtype=torch.float32, device=table.device)
-    lib = _lib()
+    lib = _build.load_library()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         code = getattr(lib, f"splatpu_{entry}")(

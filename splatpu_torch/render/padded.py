@@ -30,7 +30,6 @@ mode on the card (its plain version on the CPU).  As in the JAX package
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -73,14 +72,6 @@ def _check_inputs(records, start, end, bg, tiles_x, tiles_y):
     return v, c
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load_library()
-    for fn, n_ptr, n_int in ((lib.splatpu_padded_fwd, 8, 7), (lib.splatpu_padded_bwd, 10, 7)):
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def padded_fwd_cuda(records, start, end, bg, *, tiles_x, tiles_y, width, height):
     """Launch K5's forward; every tensor must be a contiguous CUDA tensor."""
     global LAUNCHES
@@ -91,7 +82,7 @@ def padded_fwd_cuda(records, start, end, bg, *, tiles_x, tiles_y, width, height)
     depth = torch.empty((v, height, width), dtype=torch.float32, device=dev)
     tfin = torch.empty_like(depth)
     last = torch.empty((v, height, width), dtype=torch.int32, device=dev)
-    lib = _lib()
+    lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.splatpu_padded_fwd(
@@ -132,7 +123,7 @@ def padded_bwd_cuda(records, start, end, bg, tfinal, last, g_img, g_depth, g_tf,
     v, c = _check_inputs(records, start, end, bg, tiles_x, tiles_y)
     check_bwd_inputs(tfinal, last, g_img, g_depth, g_tf, v, c, width, height)
     d_rows = torch.zeros_like(records)
-    lib = _lib()
+    lib = _build.load_library()
     with torch.cuda.device(records.device):
         stream = torch.cuda.current_stream(records.device).cuda_stream
         code = lib.splatpu_padded_bwd(

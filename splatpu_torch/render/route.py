@@ -29,8 +29,6 @@ offsets and counts (V, N) int32 -> (V, N, R) float32.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from splatpu_torch import _build
@@ -85,13 +83,10 @@ def route_pairs_cuda(rows, slot_map, offsets, counts, padded: bool = False) -> t
     n = offsets.shape[1]
     out = torch.empty((v, n, r), dtype=torch.float32, device=rows.device)
     lib = _build.load_library()
-    fn = lib.splatpu_route_pairs
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
-        code = fn(*(x.data_ptr() for x in tensors), out.data_ptr(), v, n, p, slot_map.shape[1], r,
-                  int(padded), stream)
+        code = lib.splatpu_route_pairs(*(x.data_ptr() for x in tensors), out.data_ptr(), v, n, p,
+                                       slot_map.shape[1], r, int(padded), stream)
     _build.check_status(lib, code, "route_pairs launch")
     LAUNCHES += 1
     return out
