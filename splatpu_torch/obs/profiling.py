@@ -3,21 +3,24 @@
 - ``force_completion``: wait for the card's queued work;
 - ``time_fn``: ms per call, a host clock around each batch of calls and
   the wait for its completion, in batches whose spread is reported;
-- ``trace``: ``torch.profiler`` over a block, its Chrome trace written to a
-  directory;
-- ``debug_nan_mode``: autograd anomaly detection over a block;
-- ``launch_counts`` / ``zero_counts``: every kernel's launch counter.
+- ``launch_counts`` / ``zero_counts``: every kernel's launch counter;
+- ``BackwardPhases``: a stage-2 step's backward split into ``loss_bwd``,
+  ``render_bwd`` and ``deform_bwd`` ranges, while a profiler records;
+- ``count_binning`` / ``take_counts``: exact binning's pairs kept, lane
+  slots sorted and budget slots, counted while a profiler records.
+
+The program's spans are ``torch.profiler`` ranges (``record_function``),
+so they share the clock of the profiler's device trace.
 """
 
 from __future__ import annotations
 
-import contextlib
 import importlib
 import time
-from pathlib import Path
 from typing import Callable
 
 import torch
+from torch.profiler import record_function
 
 # Every kernel's launch counter, by kernel: (module, attribute).
 COUNTERS = {
@@ -79,23 +82,104 @@ def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 10, args_fn=None,
     }
 
 
-@contextlib.contextmanager
-def trace(log_dir):
-    """``torch.profiler`` (CPU and, with a card, CUDA activity) over the
-    block; the Chrome trace goes to ``log_dir/trace.json``."""
-    from torch.profiler import ProfilerActivity, profile
+class BackwardPhases:
+    """One step's backward as three ``record_function`` ranges, opened and
+    closed by autograd hooks on the thread that runs the backward
+    (autograd's device thread on a card):
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    log_dir = Path(log_dir)
-    log_dir.mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities, record_shapes=False) as prof:
-        yield prof
-    prof.export_chrome_trace(str(log_dir / "trace.json"))
+    - ``loss_bwd``: from the differentiated loss's node (``loss``) until the
+      gradients of every rendered image have arrived (``images``): the L1's
+      and SSIM's backward;
+    - ``render_bwd``: from there until the gradients of the activated
+      cloud's tensors that require grad have arrived: the composite's
+      backward, its routing, the table's and preprocess's backward, and
+      whatever else reaches those tensors first (stage 2's rigidity);
+    - ``deform_bwd``: from there until every parameter's gradient has
+      arrived (``params``): the deformation network's backward.
+
+    ``begin`` makes the step's phases only while a profiler records, and
+    sets them as ``current``, which ``stage2.view_losses`` reads to mark the
+    images; ``end`` closes what is still open and clears ``current``.  With
+    no profiler no hook is registered.  Each hook removes itself when it
+    fires: a hook on a leaf tensor would otherwise fire in later steps."""
+
+    current: "BackwardPhases | None" = None
+
+    def __init__(self):
+        self._open = None
+
+    @classmethod
+    def begin(cls) -> "BackwardPhases | None":
+        cls.current = cls() if torch.autograd._profiler_enabled() else None
+        return cls.current
+
+    def _enter(self, name: str | None) -> None:
+        """Close the open range, then open ``name`` (if any)."""
+        if self._open is not None:
+            self._open.__exit__(None, None, None)
+            self._open = None
+        if name is not None:
+            self._open = record_function(name)
+            self._open.__enter__()
+
+    def _after(self, tensors, name: str | None) -> None:
+        """Enter ``name`` once the gradients of ``tensors`` have arrived."""
+        tensors = [t for t in tensors if t is not None and t.requires_grad]
+        if not tensors:
+            return
+        handle = None
+
+        def arrived(grads):
+            handle.remove()
+            self._enter(name)
+
+        handle = torch.autograd.graph.register_multi_grad_hook(tensors, arrived, mode="all")
+
+    def loss(self, loss: torch.Tensor) -> None:
+        """Open ``loss_bwd`` when the backward reaches ``loss``."""
+        if loss.grad_fn is not None:
+            loss.grad_fn.register_prehook(lambda grad_outputs: self._enter("loss_bwd"))
+
+    def images(self, images, cloud) -> None:
+        """The rendered ``images`` and the activated ``cloud`` tensors they
+        were rendered from."""
+        self._after(images, "render_bwd")
+        self._after(cloud, "deform_bwd")
+
+    def params(self, params) -> None:
+        self._after(params, None)
+
+    def end(self) -> None:
+        self._enter(None)
+        BackwardPhases.current = None
 
 
-@contextlib.contextmanager
-def debug_nan_mode():
-    with torch.autograd.detect_anomaly():
-        yield
+# Exact binning's counters, one entry per view binned while a profiler
+# records: (pairs before clipping, a device scalar as binning left it; lane
+# slots sorted; budget slots).  Read and cleared by ``take_counts``.
+_BINNING: list[tuple[torch.Tensor, int, int]] = []
+
+
+def count_binning(total_pairs: torch.Tensor, lane_slots: int, budget_slots: int) -> None:
+    """Keep one view's binning counts; launches nothing and reads nothing."""
+    _BINNING.append((total_pairs, lane_slots, budget_slots))
+
+
+def take_counts() -> dict:
+    """The binning counts kept since the last call, summed over the views:
+    ``views``, ``pairs_kept`` (each view's pairs clipped to its budget),
+    ``lane_slots`` and ``budget_slots``; ``{}`` where none were kept.  One
+    synchronise; the store is emptied."""
+    if not _BINNING:
+        return {}
+    kept = list(_BINNING)
+    _BINNING.clear()
+    dev = kept[0][0].device
+    pairs = torch.stack([t.reshape(()).to(dev, torch.int64) for t, _, _ in kept])
+    budgets = torch.tensor([b for _, _, b in kept], dtype=torch.int64, device=dev)
+    return {
+        "views": len(kept),
+        "pairs_kept": int(torch.minimum(pairs, budgets).sum()),
+        "lane_slots": sum(n for _, n, _ in kept),
+        "budget_slots": sum(b for _, _, b in kept),
+    }

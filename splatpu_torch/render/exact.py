@@ -36,9 +36,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.profiler import record_function
 
 from splatpu_torch.core.projection import Splats2D, preprocess, tile_rect
 from splatpu_torch.core.types import Camera, RenderArgs
+from splatpu_torch.obs import profiling
 from splatpu_torch.render.binning import (
     KERNEL_CHOICES,
     SENTINEL,
@@ -91,7 +93,9 @@ def bin_splats(
     tile field and so the depth quantization (``binning.depth_key_tiles``).
 
     The integers come from detached values; only ``g_opacity`` (and the
-    splats, passed through) carry autograd history."""
+    splats, passed through) carry autograd history.  While a profiler
+    records, the view's pairs, lane slots and budget are kept for
+    ``obs.profiling.take_counts``."""
     with torch.no_grad():
         stream = _bin(splats, opacities.detach(), width, height, config, key_tiles)
     g_opacity = torch.where(splats.visible, opacities, torch.zeros_like(opacities))
@@ -219,6 +223,8 @@ def _bin(splats: Splats2D, opacities, width, height, config: BinningConfig,
         val_flat = torch.cat([val_a, val_b])
     else:
         key_flat, val_flat = emit(sel_all, gids, geom_all[2], v_all)
+    if torch.autograd._profiler_enabled():
+        profiling.count_binning(total_pairs, key_flat.numel(), mp)
 
     if config.exact_tie_order:
         fused, _ = torch.sort(((key_flat - (1 << 31)) << 32) | val_flat)
@@ -259,10 +265,13 @@ def _bin(splats: Splats2D, opacities, width, height, config: BinningConfig,
 
 
 def build_exact_stream(args: RenderArgs, camera: Camera, config: BinningConfig) -> ExactStream:
-    """Preprocess one view and bin it."""
-    sp = preprocess(args, camera)
-    return bin_splats(sp, args.opacities[:, 0], camera.width, camera.height, config,
-                      depth_key_tiles(camera, config.tile))
+    """Preprocess one view and bin it (``record_function`` ranges
+    ``preprocess`` and ``binning``)."""
+    with record_function("preprocess"):
+        sp = preprocess(args, camera)
+    with record_function("binning"):
+        return bin_splats(sp, args.opacities[:, 0], camera.width, camera.height, config,
+                          depth_key_tiles(camera, config.tile))
 
 
 def bin_views(args: RenderArgs, camera: Camera, config: BinningConfig) -> list[ExactStream]:
@@ -367,28 +376,29 @@ def composite_streams(streams: list[ExactStream], camera: Camera, config: Binnin
     """Composite binned views in one call, the table packed with ``colors``
     (and ``mean2d``, see ``table_inputs``): the CUDA kernels
     (``impl="cuda"``) or their plain versions (``"plain"``), K1/K2 or K4 as
-    ``config.kernel`` says."""
+    ``config.kernel`` says.  A ``record_function`` range ``composite``."""
     if impl not in ("cuda", "plain"):
         raise ValueError(f"unknown composite impl: {impl!r}")
     check_kernel_limits(config, colors.shape[1])
-    k = table_inputs(streams, camera, config, colors, mean2d)
-    offsets = torch.stack([s.offsets for s in streams])
-    counts = torch.stack([s.counts for s in streams])
-    lane = torch.stack([s.lane for s in streams])
-    image, depth, tfin, last = CompositeTable.apply(
-        k["table"], bg, k["gid"], k["start"], k["end"], offsets, counts, lane,
-        k["geometry"], (impl, config.kernel),
-    )
-    return RenderOutput(
-        image=image,
-        depth=depth,
-        radii=torch.stack([s.splats.radius for s in streams]),
-        final_transmittance=tfin,
-        last_contributor=last,
-        overflowed=torch.stack([s.overflowed for s in streams]),
-        span_overflowed=torch.stack([s.span_overflowed for s in streams]),
-        total_pairs=torch.stack([s.total_pairs for s in streams]),
-    )
+    with record_function("composite"):
+        k = table_inputs(streams, camera, config, colors, mean2d)
+        offsets = torch.stack([s.offsets for s in streams])
+        counts = torch.stack([s.counts for s in streams])
+        lane = torch.stack([s.lane for s in streams])
+        image, depth, tfin, last = CompositeTable.apply(
+            k["table"], bg, k["gid"], k["start"], k["end"], offsets, counts, lane,
+            k["geometry"], (impl, config.kernel),
+        )
+        return RenderOutput(
+            image=image,
+            depth=depth,
+            radii=torch.stack([s.splats.radius for s in streams]),
+            final_transmittance=tfin,
+            last_contributor=last,
+            overflowed=torch.stack([s.overflowed for s in streams]),
+            span_overflowed=torch.stack([s.span_overflowed for s in streams]),
+            total_pairs=torch.stack([s.total_pairs for s in streams]),
+        )
 
 
 def background(bg, c: int, device) -> torch.Tensor:

@@ -11,11 +11,12 @@ warm-up run.  Prints the steps' wall time (CUDA events), the host time of
 each stage (the ``deform``, ``render``, ``loss``, ``backward``, ``adam`` and
 ``snapshot`` ranges of the step), the device time by kernel inside the
 steps, and the device's busy and idle share of the steps' window (each
-``train_step`` range, which ends after the step's synchronisation).  Setup
-(kNN graph, encodings, staging) is outside those windows.  ``--path`` picks
-the render path: K1/K2 (``grid``, the default), K4 (``manual``, through
-``binning_overrides``) or K5 (``padded``: ``renderer="cuda_padded"`` with a
-budget measured at 16 px tiles over the first timestep's cameras).
+``train_step`` range, which ends when the step is enqueued: a kernel that
+starts after its step's range has ended is not counted).  Setup (kNN graph,
+encodings, staging) is outside those windows.  ``--path`` picks the render path: K1/K2 (``grid``, the default),
+K4 (``manual``, through ``binning_overrides``) or K5 (``padded``:
+``renderer="cuda_padded"`` with a budget measured at 16 px tiles over the
+first timestep's cameras).
 """
 
 from __future__ import annotations

@@ -39,6 +39,7 @@ rank 0 logs and writes checkpoints.  Without ``mesh_cameras``,
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 import warnings
@@ -75,6 +76,7 @@ from splatpu_torch.io.checkpoint import (
     opt_state_to_tree,
     save_checkpoint,
 )
+from splatpu_torch.obs.profiling import BackwardPhases
 from splatpu_torch.render.binning import (
     BinningConfig,
     adopt_checkpointed_budget,
@@ -219,7 +221,9 @@ def view_losses(args, camera: Camera, w2c, K, images, weights, renderer: str, bi
     weight where ``weights`` is given (0 for a padding view); the flags are
     the max over the views of weight > 0 (as 0/1), ``pairs`` the largest
     view's demanded pairs.  ``batching`` "vmap" renders every view in one
-    batched render, "map" one view at a time."""
+    batched render, "map" one view at a time.  The step's
+    ``BackwardPhases``, while a profiler records, learn the rendered images
+    and the cloud tensors they came from here."""
     groups = ([slice(None)] if batching == "vmap"
               else [slice(i, i + 1) for i in range(w2c.shape[0])])
     l1_sum = ssim_sum = 0.0
@@ -236,6 +240,10 @@ def view_losses(args, camera: Camera, w2c, K, images, weights, renderer: str, bi
             l1_sum = l1_sum + l1.sum()
             ssim_sum = ssim_sum + s.sum()
         outs.append(out)
+    phases = BackwardPhases.current
+    if phases is not None:
+        phases.images([o.image for o in outs],
+                      [getattr(args, f.name) for f in dataclasses.fields(args)])
     overflow = torch.cat([o.overflowed for o in outs])
     span = torch.cat([o.span_overflowed for o in outs])
     if weights is not None:
@@ -278,8 +286,12 @@ def make_step(config: Stage2Config, state: Stage2Setup, width: int, height: int,
     binning_overflow and span_overflow (max over the views, as 0/1), and
     pairs (the largest view's demanded pairs).  Its stages are
     ``torch.profiler`` ranges: ``deform`` (network and rigidity),
-    ``render``, ``loss``, ``backward``, ``adam`` and ``snapshot``;
-    ``splatpu_torch.tools.profile_training`` reads them.
+    ``render`` (inside it ``preprocess`` and ``binning`` per view and
+    ``composite``, from ``render/exact.py``), ``loss``, ``backward``,
+    ``adam`` and ``snapshot``; while a profiler records, the backward is
+    split into ``loss_bwd``, ``render_bwd`` and ``deform_bwd`` on the
+    thread that runs it (``obs.profiling.BackwardPhases``).
+    ``splatpu_torch.tools.profile_training`` and the benchmark read them.
     """
     net, optimizer = state.net, state.optimizer
     params = dict(net.named_parameters())
@@ -287,6 +299,7 @@ def make_step(config: Stage2Config, state: Stage2Setup, width: int, height: int,
         image_losses = make_local_image_losses(config, width, height)
 
     def step(encoded_previous, previous_fg, timestep, w2c, K, images, binning, weights=None):
+        phases = BackwardPhases.begin()
         with no_tf32():
             if images.dtype == torch.uint8:
                 images = images.float() / 255.0
@@ -309,11 +322,14 @@ def make_step(config: Stage2Config, state: Stage2Setup, width: int, height: int,
                 # the multiplier is the real view count.
                 rigidity = (float(w2c.shape[0]) if weights is None else weights.sum()) * rig
                 total = image_loss + RIGIDITY_WEIGHT * rigidity
+            loss = total if grad_sync is None or grad_sync.owns_rigidity else image_loss
+            if phases is not None:
+                phases.loss(loss)
+                phases.params(params.values())
             with record_function("backward"):
-                if grad_sync is None or grad_sync.owns_rigidity:
-                    total.backward()
-                else:
-                    image_loss.backward()
+                loss.backward()
+                if phases is not None:
+                    phases.end()
             with record_function("adam"):
                 grads = {k: p.grad for k, p in params.items()}
                 if grad_sync is not None:
@@ -445,6 +461,66 @@ class Rotation:
         self.pos = pos
 
 
+class VisitLog:
+    """A logger's rows of the visits, in step order, each with its
+    ``step_ms``: on a card from CUDA events around the visit's steps, read
+    when the next visit has been enqueued (by then the visit has nearly
+    always completed: ``Event.query``, no wait) and at ``flush``, which waits
+    once for the last visit; elsewhere from the host clock.  Rows logged
+    with ``note`` keep their place behind the visits before them."""
+
+    def __init__(self, logger, on_card: bool):
+        self.logger = logger
+        self.on_card = on_card
+        # (step, metrics, the visit's (start, end) events or None, is a visit)
+        self.pending = collections.deque()
+        self.last_end = None
+        self.last = None  # the last visit's row as logged
+
+    def start(self):
+        """A mark before the visit's steps are enqueued."""
+        if not self.on_card:
+            return time.perf_counter()
+        mark = torch.cuda.Event(enable_timing=True)
+        mark.record()
+        return mark
+
+    def visit(self, step: int, metrics: dict, start) -> None:
+        """The visit's row, once its steps are enqueued; ``start`` from ``start``."""
+        if self.on_card:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.last_end = end
+            self.pending.append((step, metrics, (start, end), True))
+        else:
+            ms = 1e3 * (time.perf_counter() - start)
+            self.pending.append((step, dict(metrics, step_ms=ms), None, True))
+        self.log_ready()
+
+    def note(self, step: int, metrics: dict) -> None:
+        self.pending.append((step, metrics, None, False))
+
+    def log_ready(self) -> None:
+        """Log the rows in order up to the first visit still running."""
+        while self.pending:
+            step, metrics, marks, is_visit = self.pending[0]
+            if marks is not None:
+                if not marks[1].query():
+                    return
+                metrics = dict(metrics, step_ms=marks[0].elapsed_time(marks[1]))
+            self.pending.popleft()
+            self.logger.log(metrics, step=step)
+            if is_visit:
+                self.last = metrics
+
+    def flush(self) -> None:
+        """Log every row, after one wait for the last visit's end."""
+        if self.last_end is not None:
+            self.last_end.synchronize()
+            self.last_end = None
+        self.log_ready()
+
+
 def checkpoint_payload(state: Stage2Setup, config: Stage2Config, seq_it: int,
                        growths: int) -> dict:
     """A stage-2 checkpoint in the JAX package's layout: ``net_params``,
@@ -503,13 +579,15 @@ def train(
     object with ``log(metrics, step)`` and ``flush()``) gets every step's
     metrics plus ``learning_rate`` (the schedule at the update count the
     step used), ``max_pairs`` (the budget) and ``step_ms`` (CUDA events on a
-    card, the host clock elsewhere; taking it synchronises; it covers the
-    visit's steps, not the staging of its views before them, so compare
-    view stagings by the wall time between ``on_iteration`` calls).  Each visit's
-    steps are a ``train_step`` profiler range, which ends after that
-    synchronisation when a logger is given.  View picks and the visit order
-    are drawn from ``np.random.default_rng(config.seed)`` exactly as the
-    JAX loop draws them.
+    card, the host clock elsewhere; it covers the visit's steps, not the
+    staging of its views before them, so compare view stagings by the wall
+    time between ``on_iteration`` calls), in step order, every row of a
+    sequence iteration before its checkpoint and ``on_iteration``
+    (``VisitLog``: the card is waited on once per sequence iteration, not
+    once per visit).  Each visit's steps are a ``train_step`` profiler
+    range, which ends when they are enqueued.  View picks and the visit
+    order are drawn from ``np.random.default_rng(config.seed)`` exactly as
+    the JAX loop draws them.
 
     ``resume_from``: a stage-2 checkpoint (either package's) to continue
     from: the network and Adam state are loaded, the loop starts at the
@@ -587,6 +665,7 @@ def train(
         except ImportError:
             pass
     metrics = {}
+    visits = VisitLog(logger, on_card) if logger is not None else None
     for seq_it in outer:
         enc_prev, prev_fg = snapshot_previous(
             state.cloud, state.fg_idx, state.neighbor_info, config.quirk_compat
@@ -634,11 +713,8 @@ def train(
             else:
                 images = all_images[pick]
             with record_function("train_step"):
-                if on_card:
-                    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                    marks[0].record()
-                else:
-                    t_host = time.perf_counter()
+                if visits is not None:
+                    start = visits.start()
                 # k steps on this timestep's views; the "previous" snapshot
                 # advances only after the last of them.
                 for _rep in range(k_rep):
@@ -646,24 +722,15 @@ def train(
                         enc_prev, prev_fg, float(timestep), w2c, K, images, config.binning,
                         weights)
                 enc_prev, prev_fg = enc_out, fg_out
-                if logger is not None:
-                    if on_card:
-                        marks[1].record()
-                        marks[1].synchronize()
-                        step_ms = marks[0].elapsed_time(marks[1])
-                    else:
-                        step_ms = 1e3 * (time.perf_counter() - t_host)
-            if logger is not None:
-                metrics = dict(
-                    metrics,
-                    learning_rate=stage2_lr_at(
-                        config.learning_rate, config.warmup_iterations * t_count * k_rep,
-                        config.total_iterations * t_count * k_rep, step_idx * k_rep - 1,
-                    ),
-                    max_pairs=config.binning.max_pairs,
-                    step_ms=step_ms,
-                )
-                logger.log(metrics, step=step_idx)
+                if visits is not None:
+                    visits.visit(step_idx, dict(
+                        metrics,
+                        learning_rate=stage2_lr_at(
+                            config.learning_rate, config.warmup_iterations * t_count * k_rep,
+                            config.total_iterations * t_count * k_rep, step_idx * k_rep - 1,
+                        ),
+                        max_pairs=config.binning.max_pairs,
+                    ), start)
             if (
                 config.grow_budget_on_overflow
                 and config.overflow_check_every
@@ -681,15 +748,19 @@ def train(
                         )
                     config = dataclasses.replace(config, binning=grown)
                     growths += 1
-                    if logger is not None:
-                        logger.log({"budget_growth": growths, "max_pairs": grown.max_pairs,
-                                    "max_span": grown.max_span}, step=step_idx)
+                    if visits is not None:
+                        visits.note(step_idx, {"budget_growth": growths,
+                                               "max_pairs": grown.max_pairs,
+                                               "max_span": grown.max_span})
                 else:
                     warnings.warn(
                         "stage 2: binning pair budget still overflowing at "
                         f"max_pairs={config.binning.max_pairs} after {growths} growths"
                         " — renders are dropping splats", stacklevel=2,
                     )
+        if visits is not None:
+            visits.flush()
+            metrics = visits.last
         if (config.checkpoint_every and config.checkpoint_path
                 and (seq_it + 1) % config.checkpoint_every == 0
                 and (mesh is None or mesh.rank == 0)):

@@ -12,8 +12,7 @@
   buffered tensors in one batched copy (no ``.item()``) and writes the JAX
   logger's rows;
 - the profiling helpers on the CPU: ``time_fn``'s batches on the host
-  clock, ``trace``'s Chrome trace file, ``debug_nan_mode`` naming the
-  backward that made a NaN;
+  clock, ``force_completion``;
 - the native KD-tree (tests/test_native_knn.py's cases: self and external
   queries against a numpy brute force, the small-cloud padding) and
   ``knn``'s routing above the threshold, indices identical to a float64
@@ -112,7 +111,7 @@ def test_psnr_matches_jax():
         float(jpsnr(jnp.asarray(a), jnp.asarray(b))), rel=1e-6)
 
 
-def test_profiling_helpers_on_cpu(tmp_path):
+def test_profiling_helpers_on_cpu():
     calls = []
     stats = profiling.time_fn(lambda x: calls.append(x), 3, warmup=2, iters=5, batches=2,
                               device="cpu")
@@ -120,12 +119,6 @@ def test_profiling_helpers_on_cpu(tmp_path):
     assert stats["iters"] == 5 and stats["timer"] == "host_clock"
     assert stats["mean_ms"] >= 0 and stats["spread_ms"] >= 0
     profiling.force_completion("cpu")
-    with profiling.trace(tmp_path / "prof"):
-        torch.ones(4).sum()
-    assert json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
-    x = torch.zeros(1, requires_grad=True)
-    with pytest.raises(RuntimeError, match="nan"), profiling.debug_nan_mode():
-        torch.sqrt(x - 1.0).sum().backward()
 
 
 def test_metrics_logger_one_batched_fetch(tmp_path, monkeypatch):
