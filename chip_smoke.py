@@ -73,7 +73,10 @@ Phases, each printed with its wall time and bounded by a watchdog:
    16 px) NEW_TRAIN_TIMESTEPS x NEW_TRAIN_ITERATIONS, instead of 150 x 40.
    Every kernel count is zeroed just before ``train`` and read just after;
    each step must launch its path's forward, backward and the routing
-   kernel once, and no other composite.
+   kernel once, and no other composite.  Every render of the exact path
+   (K1/K2 or K4, not the padded path's, not stage 1's ``render_dual``)
+   also launches the projection kernel once forward and once backward,
+   and the serve, train, cli, dist, acceptance and bench phases expect it.
 10. measure, measure_manual, measure_padded: each forward kernel at the
    served shapes (the t=0 frame's inputs) against its plain version, CUDA-
    event times of both, and the bound from this run's bytes and the work
@@ -89,6 +92,12 @@ Phases, each printed with its wall time and bounded by a watchdog:
    routing in its padded mode at the padded path's training shapes against
    its plain version, with its time, the plain version's, one
    ``index_add_`` of the in-budget slots' rows by (view, gid) and its bound.
+   Before them, measure_projection: the projection kernel
+   (``csrc/project.cu``) at five 1280x720 rig views of config 3's 100,585
+   Gaussians and of config 4's 250,000, its table, radius and visibility
+   bitwise the plain version's, its backward against the plain analytic
+   backward (BWD_TOL scaled per column), ms per forward and per backward
+   launch beside the bound by bytes and the plain version's ms.
 
 12. bwd_tiles: at 5 x 320x180 with 8 and 24 px tiles (``NEW_BWD_TILES``):
    K1 and K4's forward there against their plain versions (``last``
@@ -287,7 +296,9 @@ time and bound at the training shapes, ``train_ms`` and
 ``stage1_bound_ms``; K2 and K4's backward also at 8 and 24 px tiles at
 the training shapes, and K1 and K2 at 48 and 64 px there, ``tiles``; K1,
 K2 and the routing also at the bench
-shape, ``bench_*``), then the card line, and last
+shape, ``bench_*``; the projection's ``project_fwd`` and ``project_bwd``
+at config 3's training shape and, as ``config4_*``, at config 4's), then
+the card line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; nothing is
 caught and continued.  Imports nothing of JAX.
 """
@@ -660,6 +671,20 @@ def check_only(counts: dict, expected: set, where: str) -> None:
         fail(f"{where}: kernels of another path launched: {stray}")
 
 
+# The exact path's render under impl="cuda" projects its views through the
+# projection kernel once per composite launch, forward and backward (stage
+# 1's render_dual and the padded path keep preprocess).
+PROJECTION_OF = {"composite_fwd": "project_fwd", "composite_manual_fwd": "project_fwd",
+                 "composite_bwd": "project_bwd", "composite_manual_bwd": "project_bwd"}
+
+
+def projected(expected):
+    """``expected`` kernels of an exact-path render and the projection
+    kernels that go with its composites, in the same kind of collection."""
+    extra = sorted({PROJECTION_OF[k] for k in expected if k in PROJECTION_OF})
+    return type(expected)([*expected, *extra])
+
+
 def fwd_bound(c, v, hw, evals, contribs, bytes_in):
     """(bound ms, bytes ms, ops ms, bytes, ops) of a forward composite: its
     inputs read once and its outputs (C + 3 values per pixel) written once;
@@ -793,10 +818,11 @@ def serve_path(name, net, cloud, config, expected_fwd, timesteps):
         fail(f"{name}: {stats['nonfinite_pixels']} non-finite image values")
     if stats["residual_overflow"]:
         fail(f"{name}: binning overflow left after growth")
-    if counts[expected_fwd] != stats["renders"] or stats["renders"] < timesteps + 1:
-        fail(f"{name}: {expected_fwd} launched {counts[expected_fwd]} times in"
-             f" {stats['renders']} renders, expected one per render, >= {timesteps + 1}")
-    check_only(counts, {expected_fwd}, name)
+    for k in projected({expected_fwd}):
+        if counts[k] != stats["renders"] or stats["renders"] < timesteps + 1:
+            fail(f"{name}: {k} launched {counts[k]} times in {stats['renders']} renders,"
+                 f" expected one per render, >= {timesteps + 1}")
+    check_only(counts, projected({expected_fwd}), name)
     if all(fr[0].mean() < 1.0 for fr in frames.values()):
         fail(f"{name}: every t=0 frame is black")
     return counts, stats
@@ -1187,7 +1213,7 @@ def large_tiles_path(dev, args, cloud, views, net, head, base_cfg):
     torch.cuda.synchronize()
 
     out = {}
-    expected = ("composite_fwd", "composite_bwd", "route_pairs")
+    expected = projected(("composite_fwd", "composite_bwd", "route_pairs"))
     one_step = dict(total_iterations=1, timestep_count=1)
     for name, overrides in ((f"tile{LARGE_PATH_TILE}", {"tile": LARGE_PATH_TILE}),
                             ("tie_order_off", {"exact_tie_order": False})):
@@ -1214,7 +1240,7 @@ def options_paths(cloud, views, base_cfg):
     sequence iteration.  Returns {path: (counts, log)}."""
     import numpy as np
 
-    expected = ("composite_fwd", "composite_bwd", "route_pairs")
+    expected = projected(("composite_fwd", "composite_bwd", "route_pairs"))
     cfg = dataclasses.replace(base_cfg, total_iterations=STAGING_ITERATIONS,
                               timestep_count=OPTION_TIMESTEPS, view_staging="device")
     one = dict(total_iterations=1)
@@ -1406,9 +1432,10 @@ def cli_path(dev, cloud, head):
         print(f"  cli.render frames vs cli.train's: max |d| {worst} uint8 levels", flush=True)
         if worst > 1:
             fail(f"cli: standalone render differs from the trainer's frames by {worst} levels")
-    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
+    expected = projected({"composite_fwd", "composite_bwd", "route_pairs"})
     check_only(counts, expected, "cli")
-    if counts["composite_bwd"] != 6 or counts["route_pairs"] != 6 or counts["composite_fwd"] < 6:
+    if (counts["composite_bwd"] != 6 or counts["route_pairs"] != 6 or counts["project_bwd"] != 6
+            or counts["composite_fwd"] < 6 or counts["project_fwd"] != counts["composite_fwd"]):
         fail(f"cli: launches {counts}, expected 6 backward and routing launches")
     return counts
 
@@ -2062,15 +2089,15 @@ def dist_render_path(dev, cloud):
                   f" {n_rows * w} pixels", flush=True)
             if not (own <= TOL["image"] and err <= TOL["image"]) or moved:
                 bad.append(r["rank"])
-            if r["counts"]["composite_fwd"] != 1:
-                fail(f"dist_render: rank {r['rank']} launched K1 {r['counts']['composite_fwd']}"
-                     " times, expected once")
+            if r["counts"]["composite_fwd"] != 1 or r["counts"]["project_fwd"] != 1:
+                fail(f"dist_render: rank {r['rank']} launched {r['counts']}, expected K1 and"
+                     " the projection once")
         if bad:
             fail(f"dist_render: {n} strips, ranks {bad} outside {TOL['image']} of the whole"
                  " render, or their strips changed by the gather")
         for k, v in rank_totals(results).items():
             total[k] += v
-    check_only(total, {"composite_fwd"}, "dist_render")
+    check_only(total, projected({"composite_fwd"}), "dist_render")
     return total
 
 
@@ -2160,7 +2187,7 @@ def hold_sharded(name, cloud_path, views, cfg, init, cameras, tiles, card):
         fail(f"{name}: parameters {ratio:.2e} of their movement from the single-process run")
     if not (equal_ranks and equal_runs):
         fail(f"{name}: ranks or runs differ")
-    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
+    expected = projected({"composite_fwd", "composite_bwd", "route_pairs"})
     for i, r in enumerate(results):
         for run in r["runs"]:
             if any(run["counts"][k] != n_steps for k in expected):
@@ -2327,7 +2354,7 @@ def train_batch_path(dev, cloud):
                   f" networks bitwise equal {same}", flush=True)
             if rec["process"] != p or not same:
                 fail(f"train_batch: {name} (process {rec['process']}) differs from cli.train's")
-    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
+    expected = projected({"composite_fwd", "composite_bwd", "route_pairs"})
     n_steps = 2 * (CLI_FRAMES - 1)
     for i, r in enumerate(results):
         if any(r["counts"][k] != n_steps for k in expected):
@@ -2627,9 +2654,9 @@ def acceptance_config4_path(dev, card):
         fail("acceptance_config4: stage2 did not log every step")
     if got["binning"]["overflow_steps"] or not np.isfinite([r["total"] for r in steps]).all():
         fail(f"acceptance_config4: stage2 overflowed or diverged ({got['binning']})")
-    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
-    if not (s2_counts["composite_bwd"] == s2_counts["route_pairs"] == n_steps
-            and s2_counts["composite_fwd"] >= n_steps):
+    expected = projected({"composite_fwd", "composite_bwd", "route_pairs"})
+    if not (s2_counts["composite_bwd"] == s2_counts["route_pairs"] == s2_counts["project_bwd"]
+            == n_steps and s2_counts["project_fwd"] == s2_counts["composite_fwd"] >= n_steps):
         fail(f"acceptance_config4: stage2 launched {s2_counts} in {n_steps} steps")
     check_only(s2_counts, expected, "acceptance_config4 stage2")
 
@@ -2712,9 +2739,9 @@ def video_path(net, cloud, head):
                 got = (path.suffix, im.n_frames, im.size, im.info.get("loop"))
             if got != (".gif", VIDEO_TIMESTEPS + 1, SERVE_SIZE, 0):
                 fail(f"serve video: camera {name}: (suffix, frames, size, loop) {got}")
-    if counts["composite_fwd"] != stats["renders"]:
-        fail(f"serve video: {counts['composite_fwd']} K1 launches in {stats['renders']} renders")
-    check_only(counts, {"composite_fwd"}, "serve video")
+    if not counts["composite_fwd"] == counts["project_fwd"] == stats["renders"]:
+        fail(f"serve video: launches {counts} in {stats['renders']} renders")
+    check_only(counts, projected({"composite_fwd"}), "serve video")
     return counts
 
 
@@ -2734,7 +2761,7 @@ def bench_path(dev):
     zero_counts()
     result = bench_torch.main(profile=BENCH_PROFILE)
     counts = launch_counts()
-    expected = ("composite_fwd", "composite_bwd", "route_pairs")
+    expected = projected(("composite_fwd", "composite_bwd", "route_pairs"))
     # time_fn runs warmup + 1 warm-up calls, as the JAX package's does.
     calls = (1 + BENCH_PROFILE + bench_torch.WARMUP + 1 + bench_torch.ITERS
              + bench_torch.CHAIN * (bench_torch.CHAIN_WARMUP + 1 + bench_torch.CHAIN_ITERS))
@@ -2766,6 +2793,74 @@ def bench_path(dev):
     check_rows("bench gradients, cuda against plain",
                {k: row_scaled_err(g, grads_ref[k]) for k, g in grads.items()})
     return counts
+
+
+def projection_bytes(v, n, c) -> tuple[int, int]:
+    """(forward, backward) bytes of the projection kernel over V views of N
+    Gaussians of C colours, each read once and each output written once:
+    forward the Gaussian's 11 + C floats in, the table (7 + C floats),
+    radius and visibility out per view; backward d(table) and visibility
+    per view and means, scales, rotations in, the 11 + C floats of the
+    gradients out.  The cameras (25 floats a view) are left out."""
+    fwd = 4 * n * (11 + c) + v * n * (4 * (7 + c) + 4 + 1)
+    bwd = v * n * (4 * (7 + c) + 1) + 4 * n * 10 + 4 * n * (11 + c)
+    return fwd, bwd
+
+
+def measure_projection(dev):
+    """The projection kernel (``csrc/project.cu``) at the training cells'
+    shapes, 5 rig views at 1280x720 of config 3's 100,585 Gaussians and of
+    config 4's 250,000: the outputs bitwise the plain version's (table,
+    radius, visibility), the backward against the plain analytic backward
+    (BWD_TOL scaled per column) for one seeded d(table); ms per forward and
+    per backward launch (CUDA events) beside the bound by bytes and the
+    plain version's ms for the same 5 views.  Returns {config: numbers}."""
+    import torch
+
+    import splatpu_torch.render.project as project
+    from splatpu_torch.core.types import activate_cloud
+    from splatpu_torch.io.checkpoint import load_cloud
+    from splatpu_torch.tools.measure import cuda_ms, row_scaled_err
+    from splatpu_torch.train.stage2 import compact_cloud
+
+    out = {}
+    for label, path in (("config 3", CLOUD), ("config 4", ACCEPT4_TRUTH)):
+        args = activate_cloud(compact_cloud(load_cloud(path, device=dev)))
+        cams = rig_cams(dev, *SERVE_SIZE, 5)
+        got = project.project_views_cuda(args, cams)
+        torch.cuda.synchronize()
+        ref = project.project_views_plain(args, cams)
+        differ = [int((a != b).sum()) for a, b in zip(got, ref)]
+        v, n, rec = got[0].shape
+        gen = torch.Generator(device=dev).manual_seed(7)
+        d_table = torch.randn((v, n, rec), generator=gen, device=dev)
+        needs = [True] * 5 + [False]
+        bwd = lambda: project.project_views_bwd_cuda(d_table, args, cams, got[2], needs)  # noqa: E731
+        bwd_plain = lambda: project.project_views_bwd_plain(  # noqa: E731
+            d_table, args, cams, got[2], needs)
+        pairs = list(zip(bwd()[:5], bwd_plain()[:5]))
+        errs = [row_scaled_err(a, b) for a, b in pairs]
+        abs_err = max(float((a - b).abs().max()) for a, b in pairs)
+        fwd_ms = cuda_ms(lambda: project.project_views_cuda(args, cams), reps=50, warmup=5)
+        bwd_ms = cuda_ms(bwd, reps=50, warmup=5)
+        plain_fwd_ms = cuda_ms(lambda: project.project_views_plain(args, cams), reps=3, warmup=1)
+        plain_bwd_ms = cuda_ms(bwd_plain, reps=3, warmup=1)
+        fwd_bytes, bwd_bytes = projection_bytes(v, n, rec - 7)
+        fwd_bound, bwd_bound = 1e3 * fwd_bytes / PEAK_BYTES_S, 1e3 * bwd_bytes / PEAK_BYTES_S
+        print(f"  {label}: V={v} N={n}; table, radius, visibility values differing from the"
+              f" plain version {differ}; backward scaled error {max(errs):.3e}", flush=True)
+        print(f"  {label}: forward {fwd_ms:.4f} ms/launch, plain {plain_fwd_ms:.2f} ms; bound"
+              f" {fwd_bound:.4f} ms (bytes {fwd_bytes}); backward {bwd_ms:.4f} ms/launch, plain"
+              f" {plain_bwd_ms:.2f} ms; bound {bwd_bound:.4f} ms (bytes {bwd_bytes})", flush=True)
+        if any(differ):
+            fail(f"projection, {label}: outputs differ from the plain version's: {differ}")
+        if not max(errs) <= BWD_TOL:
+            fail(f"projection, {label}: backward scaled error {max(errs):.3e} > {BWD_TOL}")
+        out[label] = dict(fwd=dict(err=0.0, ms=fwd_ms, plain_ms=plain_fwd_ms,
+                                   bound=(fwd_bound, fwd_bound, 0.0)),
+                          bwd=dict(err=abs_err, ms=bwd_ms, plain_ms=plain_bwd_ms,
+                                   bound=(bwd_bound, bwd_bound, 0.0)))
+    return out
 
 
 def bench_case(dev):
@@ -3044,7 +3139,8 @@ def main() -> int:
         print(f"  depth cut: {TRAIN_TIMESTEPS} timesteps x {TRAIN_ITERATIONS} sequence"
               f" iterations (config 3: 150 x 40); width untouched", flush=True)
         trained["train"] = train_path(
-            "train", cloud, views, base_cfg, ("composite_fwd", "composite_bwd", "route_pairs"),
+            "train", cloud, views, base_cfg,
+            projected(("composite_fwd", "composite_bwd", "route_pairs")),
             TRAIN_ITERATIONS * TRAIN_TIMESTEPS)
         train_binning = dataclasses.replace(
             demand_binning(*measure_binning_demand(args, rig_cams(dev, *SERVE_SIZE))),
@@ -3060,7 +3156,7 @@ def main() -> int:
         trained["train_manual"] = train_path(
             "train_manual", cloud, views,
             dataclasses.replace(new_cfg, binning_overrides={"kernel": "manual"}),
-            ("composite_manual_fwd", "composite_manual_bwd", "route_pairs"), new_steps)
+            projected(("composite_manual_fwd", "composite_manual_bwd", "route_pairs")), new_steps)
 
     with phase("train_padded", 300):
         t0_cams = Camera(w2c=torch.from_numpy(np.stack([v.w2c for v in views[0]])).to(dev),
@@ -3144,6 +3240,9 @@ def main() -> int:
                 dict(err=errs[0], ms=b_ms, plain_ms=b_plain_ms, bound=(max(b_tb, b_to), b_tb, b_to)),
                 dict(err=errs[1], ms=r_ms, plain_ms=r_plain_ms, bound=(max(r_tb, r_to), r_tb, r_to),
                      library_ms=r_lib_ms))
+
+    with phase("measure_projection", 120):
+        proj = measure_projection(dev)
 
     with phase("measure_bwd", 300):
         case = bwd_case(args, rig_cams(dev, *SERVE_SIZE, 5), dev, binning=train_binning)
@@ -3383,6 +3482,17 @@ def main() -> int:
                      "splatpu/render/pallas_composite.py:200 (_bwd_kernel)",
                      by_path("padded_bwd"), **k5b),
     ]
+    # The projection: no TPU kernel (splatpu/core/projection.py's preprocess
+    # is jnp that XLA fuses); ms at config 3's training shape, config 4's
+    # beside it.
+    for way in ("fwd", "bwd"):
+        entry = kernel_entry(f"project_{way}", "splatpu_torch/csrc/project.cu",
+                             "none: splatpu/core/projection.py (jnp, fused by XLA)",
+                             by_path(f"project_{way}"), **proj["config 3"][way])
+        c4 = proj["config 4"][way]
+        entry.update(config4_ms=c4["ms"], config4_plain_ms=c4["plain_ms"],
+                     config4_bound_ms=c4["bound"][0], config4_max_abs_err=c4["err"])
+        kernels.append(entry)
     for entry in kernels:
         if not entry["launches"]:
             fail(f"{entry['name']} launched on no path")

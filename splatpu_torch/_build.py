@@ -52,17 +52,20 @@ BUILD_DIR = Path(os.environ.get("SPLATPU_TORCH_BUILD_DIR", PACKAGE_DIR / "_build
 LIBRARY = BUILD_DIR / "libsplatpu_kernels.so"
 NVCC_TIMEOUT_S = 180
 CACHE_FORMAT = 1  # raised when what a cache entry holds changes
-# Each launcher's C signature: its pointers, then its ints, then the stream;
-# it returns a CUDA error code.  Pointers and the stream as c_void_p: ctypes
-# would otherwise pass each Python int as a 32-bit int and cut the pointer.
+# Each launcher's C signature: its pointers, then its ints, then its floats,
+# then the stream; it returns a CUDA error code.  Pointers and the stream as
+# c_void_p: ctypes would otherwise pass each Python int as a 32-bit int and
+# cut the pointer.
 LAUNCHERS = {
-    "splatpu_composite_fwd": (9, 9),
-    "splatpu_composite_bwd": (11, 9),
-    "splatpu_composite_manual_fwd": (9, 9),
-    "splatpu_composite_manual_bwd": (11, 9),
-    "splatpu_padded_fwd": (8, 7),
-    "splatpu_padded_bwd": (10, 7),
-    "splatpu_route_pairs": (5, 6),
+    "splatpu_composite_fwd": (9, 9, 0),
+    "splatpu_composite_bwd": (11, 9, 0),
+    "splatpu_composite_manual_fwd": (9, 9, 0),
+    "splatpu_composite_manual_bwd": (11, 9, 0),
+    "splatpu_padded_fwd": (8, 7, 0),
+    "splatpu_padded_bwd": (10, 7, 0),
+    "splatpu_route_pairs": (5, 6, 0),
+    "splatpu_project_fwd": (11, 7, 4),
+    "splatpu_project_bwd": (13, 6, 4),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -266,10 +269,11 @@ def _bind(lib: ctypes.CDLL, path: Path) -> ctypes.CDLL:
     global _lib, _library_path
     lib.splatpu_cuda_error_string.argtypes = [ctypes.c_int]
     lib.splatpu_cuda_error_string.restype = ctypes.c_char_p
-    for name, (n_ptr, n_int) in LAUNCHERS.items():
+    for name, (n_ptr, n_int, n_float) in LAUNCHERS.items():
         fn = getattr(lib, name, None)
         if fn is not None:
-            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                           + [ctypes.c_float] * n_float + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
     _lib, _library_path = lib, Path(path)
     return lib

@@ -96,6 +96,14 @@ def _matvec_rows(M, v3, bias):
 
 def preprocess(args: RenderArgs, camera: Camera) -> Splats2D:
     """Project the Gaussians into one (unbatched) view."""
+    t = projection_terms(args, camera)
+    return Splats2D(mean2d=t["mean2d"], depth=t["tz"], conic=t["conic"], radius=t["radius"],
+                    visible=t["visible"])
+
+
+def projection_terms(args: RenderArgs, camera: Camera) -> dict:
+    """``preprocess``'s intermediate values of one view, by their names
+    there; the analytic backward of ``render/project.py`` reads them."""
     if camera.batched:
         raise ValueError("preprocess takes one view; use camera.view(i)")
     means = args.means3d
@@ -168,7 +176,7 @@ def preprocess(args: RenderArgs, camera: Camera) -> Splats2D:
 
     visible = in_front & det_valid & (radius > 0.0) & (args.opacities[:, 0] > 0.0)
     radius = torch.where(visible, radius, torch.zeros_like(radius))
-    return Splats2D(mean2d=mean2d, depth=tz, conic=conic, radius=radius, visible=visible)
+    return locals()
 
 
 def tile_rect(mean2d, radius, tiles_x: int, tiles_y: int, tile: int):

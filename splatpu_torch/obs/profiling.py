@@ -6,8 +6,9 @@
 - ``launch_counts`` / ``zero_counts``: every kernel's launch counter;
 - ``BackwardPhases``: a stage-2 step's backward split into ``loss_bwd``,
   ``render_bwd`` and ``deform_bwd`` ranges, while a profiler records;
-- ``count_binning`` / ``take_counts``: exact binning's pairs kept, lane
-  slots sorted and budget slots, counted while a profiler records.
+- ``count_binning`` / ``count_projection`` / ``take_counts``: exact
+  binning's pairs kept, lane slots sorted and budget slots, and the views
+  the projection kernel projected, counted while a profiler records.
 
 The program's spans are ``torch.profiler`` ranges (``record_function``),
 so they share the clock of the profiler's device trace.
@@ -31,6 +32,8 @@ COUNTERS = {
     "composite_manual_bwd": ("splatpu_torch.render.composite", "MANUAL_BWD_LAUNCHES"),
     "padded_fwd": ("splatpu_torch.render.padded", "LAUNCHES"),
     "padded_bwd": ("splatpu_torch.render.padded", "BWD_LAUNCHES"),
+    "project_fwd": ("splatpu_torch.render.project", "LAUNCHES"),
+    "project_bwd": ("splatpu_torch.render.project", "BWD_LAUNCHES"),
 }
 
 
@@ -158,6 +161,9 @@ class BackwardPhases:
 # records: (pairs before clipping, a device scalar as binning left it; lane
 # slots sorted; budget slots).  Read and cleared by ``take_counts``.
 _BINNING: list[tuple[torch.Tensor, int, int]] = []
+# The views projected by the projection kernel (``render/project.py``) while
+# a profiler records.  Read and cleared by ``take_counts``.
+_PROJECTED = [0]
 
 
 def count_binning(total_pairs: torch.Tensor, lane_slots: int, budget_slots: int) -> None:
@@ -165,11 +171,18 @@ def count_binning(total_pairs: torch.Tensor, lane_slots: int, budget_slots: int)
     _BINNING.append((total_pairs, lane_slots, budget_slots))
 
 
+def count_projection(views: int) -> None:
+    """Count the views of one launch of the projection kernel."""
+    _PROJECTED[0] += views
+
+
 def take_counts() -> dict:
     """The binning counts kept since the last call, summed over the views:
-    ``views``, ``pairs_kept`` (each view's pairs clipped to its budget),
-    ``lane_slots`` and ``budget_slots``; ``{}`` where none were kept.  One
-    synchronise; the store is emptied."""
+    ``views``, ``views_projected`` (by the projection kernel),
+    ``pairs_kept`` (each view's pairs clipped to its budget),
+    ``lane_slots`` and ``budget_slots``; ``{}`` where no view was binned.
+    One synchronise; the store is emptied."""
+    projected, _PROJECTED[0] = _PROJECTED[0], 0
     if not _BINNING:
         return {}
     kept = list(_BINNING)
@@ -179,6 +192,7 @@ def take_counts() -> dict:
     budgets = torch.tensor([b for _, _, b in kept], dtype=torch.int64, device=dev)
     return {
         "views": len(kept),
+        "views_projected": projected,
         "pairs_kept": int(torch.minimum(pairs, budgets).sum()),
         "lane_slots": sum(n for _, n, _ in kept),
         "budget_slots": sum(b for _, _, b in kept),

@@ -4,8 +4,9 @@
 ``render(args, camera, bg, impl, config)`` renders every view of a (possibly
 batched) camera in one call.  ``impl``:
 
-- ``"cuda"``:  exact binning + the hand-written CUDA composite (CUDA
-  tensors): K1/K2, or K4 under ``config.kernel="manual"`` (the JAX
+- ``"cuda"``:  every view projected and packed by one kernel launch
+  (``render/project.py``), exact binning + the hand-written CUDA composite
+  (CUDA tensors): K1/K2, or K4 under ``config.kernel="manual"`` (the JAX
   package's ``impl="pallas"``);
 - ``"plain"``: exact binning + the same composite's plain PyTorch version;
 - ``"cuda_padded"``: the padded pair stream + K5 (the JAX package's

@@ -28,7 +28,10 @@ messages), ``"manual"`` runs K4 (up to 9 channels, any budget).  Binning
 computes integers only and runs without autograd; the per-Gaussian table
 is packed from ``preprocess``'s outputs by differentiable ops, so
 gradients reach means, rotations, scales, opacities and colours through
-preprocess by ordinary autograd.
+preprocess by ordinary autograd.  ``render_exact`` under ``impl="cuda"``
+projects and packs every view in one autograd node instead
+(``render/project.py``: one kernel launch forward, one backward) and bins
+each view from slices of its outputs.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ from splatpu_torch.render.composite import (
     composite_manual_fwd_plain,
     pack_table,
 )
+from splatpu_torch.render.project import project_views
 from splatpu_torch.render.route import pos_of_slot_of, route_pairs_cuda, route_pairs_plain
 from splatpu_torch.render.types import RenderOutput
 
@@ -281,16 +285,35 @@ def bin_views(args: RenderArgs, camera: Camera, config: BinningConfig) -> list[E
             for i in range(camera.num_views)]
 
 
+def bin_projected(args: RenderArgs, camera: Camera, config: BinningConfig, table, radius,
+                  visible) -> list[ExactStream]:
+    """Bin every view of ``camera`` from its slices of ``project_views``'
+    outputs (a ``record_function`` range ``binning`` per view), as
+    ``bin_splats`` bins ``preprocess``'s: the same integers.  Each stream's
+    ``g_opacity`` and splats are the table's columns."""
+    streams = []
+    opacities = args.opacities[:, 0].detach()
+    key_tiles = depth_key_tiles(camera, config.tile)
+    for i in range(camera.num_views):
+        splats = Splats2D(mean2d=table[i, :, 0:2], depth=table[i, :, 6], conic=table[i, :, 2:5],
+                          radius=radius[i], visible=visible[i])
+        with record_function("binning"), torch.no_grad():
+            stream = _bin(splats, opacities, camera.width, camera.height, config, key_tiles)
+        streams.append(dataclasses.replace(stream, g_opacity=table[i, :, 5], splats=splats))
+    return streams
+
+
 def table_inputs(streams: list[ExactStream], camera: Camera, config: BinningConfig, colors,
-                 mean2d=None) -> dict:
+                 mean2d=None, table=None) -> dict:
     """The composite's kernel inputs over binned views: the stacked
-    ``table`` packed from each view's splats with ``colors`` (N, C), the
-    stacked ``gid``, ``start``, ``end``, the tile ``geometry`` keywords.
-    ``mean2d``: per-view (N, 2) pixel positions in place of the splats'
-    (``render_dual``'s secondary lineage)."""
+    ``table`` packed from each view's splats with ``colors`` (N, C) (or
+    ``table``, packed already), the stacked ``gid``, ``start``, ``end``,
+    the tile ``geometry`` keywords.  ``mean2d``: per-view (N, 2) pixel
+    positions in place of the splats' (``render_dual``'s secondary
+    lineage)."""
     tiles_x, tiles_y = tile_grid(camera.width, camera.height, config.tile)
     return dict(
-        table=torch.stack([
+        table=table if table is not None else torch.stack([
             pack_table(s.splats.mean2d if mean2d is None else mean2d[i], s.splats.conic,
                        s.g_opacity, s.splats.depth, colors)
             for i, s in enumerate(streams)
@@ -372,16 +395,17 @@ class CompositeTable(torch.autograd.Function):
 
 
 def composite_streams(streams: list[ExactStream], camera: Camera, config: BinningConfig, bg,
-                      colors, impl: str = "cuda", mean2d=None) -> RenderOutput:
+                      colors, impl: str = "cuda", mean2d=None, table=None) -> RenderOutput:
     """Composite binned views in one call, the table packed with ``colors``
-    (and ``mean2d``, see ``table_inputs``): the CUDA kernels
-    (``impl="cuda"``) or their plain versions (``"plain"``), K1/K2 or K4 as
-    ``config.kernel`` says.  A ``record_function`` range ``composite``."""
+    (and ``mean2d``, see ``table_inputs``) or ``table`` as given: the CUDA
+    kernels (``impl="cuda"``) or their plain versions (``"plain"``), K1/K2
+    or K4 as ``config.kernel`` says.  A ``record_function`` range
+    ``composite``."""
     if impl not in ("cuda", "plain"):
         raise ValueError(f"unknown composite impl: {impl!r}")
     check_kernel_limits(config, colors.shape[1])
     with record_function("composite"):
-        k = table_inputs(streams, camera, config, colors, mean2d)
+        k = table_inputs(streams, camera, config, colors, mean2d, table)
         offsets = torch.stack([s.offsets for s in streams])
         counts = torch.stack([s.counts for s in streams])
         lane = torch.stack([s.lane for s in streams])
@@ -413,10 +437,18 @@ def render_exact(
     impl: str = "cuda",
 ) -> RenderOutput:
     """Bin every view of ``camera`` and composite all of them in one call
-    (``composite_streams``).  Differentiable in every per-Gaussian input of
-    ``args`` and in ``bg``."""
+    (``composite_streams``).  Under ``impl="cuda"`` the views are projected
+    and packed by one kernel launch (``project_views``, in one
+    ``record_function`` range ``preprocess``), otherwise by ``preprocess``
+    per view.  Differentiable in every per-Gaussian input of ``args`` and in
+    ``bg``."""
     c = args.colors.shape[1]
     bg = background(bg, c, args.means3d.device)
     check_kernel_limits(config, c)  # before binning: a refused budget bins nothing
-    return composite_streams(bin_views(args, camera, config), camera, config, bg, args.colors,
-                             impl=impl)
+    if impl != "cuda":
+        return composite_streams(bin_views(args, camera, config), camera, config, bg,
+                                 args.colors, impl=impl)
+    with record_function("preprocess"):
+        table, radius, visible = project_views(args, camera)
+    streams = bin_projected(args, camera, config, table, radius, visible)
+    return composite_streams(streams, camera, config, bg, args.colors, impl=impl, table=table)

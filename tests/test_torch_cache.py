@@ -282,7 +282,8 @@ def test_enable_compilation_cache_matches_jax_and_turns_the_cache_on(state, tmp_
 def test_every_launcher_is_bound_when_the_library_loads(stub):
     lib = _build.load_library()
     assert lib.splatpu_cuda_error_string.restype is ctypes.c_char_p
-    for name, (n_ptr, n_int) in _build.LAUNCHERS.items():
+    for name, (n_ptr, n_int, n_float) in _build.LAUNCHERS.items():
         fn = getattr(lib, name)
-        assert fn.argtypes == [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        assert fn.argtypes == ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                               + [ctypes.c_float] * n_float + [ctypes.c_void_p])
         assert fn.restype is ctypes.c_int

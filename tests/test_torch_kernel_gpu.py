@@ -15,6 +15,8 @@ JAX, so it runs on a machine without it:
 (``--noconftest``: tests/conftest.py configures JAX for the other tests.)
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -584,3 +586,194 @@ def test_camera_sharded_training_on_two_gloo_ranks(cuda, tmp_path):
         assert np.array_equal(runs[1]["params"][k], runs[0]["params"][k]), k
     for run in runs:
         assert [run["counts"][k] for k in ("composite_fwd", "composite_bwd", "route_pairs")] == [4] * 3
+
+
+# The projection kernel (csrc/project.cu) against its plain version.
+PROJECTION_CASES = ["fixture", "offset_shared", "offset_per_view", "strip", "rig100k"]
+
+
+def projection_case(name, device):
+    """(RenderArgs, camera, binning) on ``device``: ``_np_scenes``' cloud
+    (dead slots: opacity 0) under 3 look-at views at 96x64, with a shared
+    or per-view ``means2d_offset``, or as 2 strips' views (rows 32-63 of a
+    96x96 image); or 100,000 random Gaussians, some behind the cameras,
+    under the first 5 rig views at 1280x720."""
+    from _np_scenes import np_cloud, np_lookat
+    from splatpu_torch.render.api import demand_binning, measure_binning_demand
+    from splatpu_torch.tools.train_scene import rig_cameras
+
+    w, h, fov, row0 = 96, 64, None, 0
+    eyes = [(3.5 * np.sin(a), 0.3, -3.5 * np.cos(a)) for a in (0.0, 1.1, 2.6)]
+    if name == "rig100k":
+        c = np_cloud(41, 100_000, extent=3.0, scale_range=(0.005, 0.05), n_dead=1000)
+        w, h = 1280, 720
+        cams = rig_cameras(w, h)[:5]
+    elif name == "strip":
+        c = np_cloud(42, 3000, extent=1.5, n_dead=100)
+        h, fov, row0 = 32, (96, 96), 32
+        cams = [np_lookat(e, 96, 96) for e in eyes[:2]]
+    else:
+        c = np_cloud(43, 3000, extent=1.5, n_dead=100)
+        cams = [np_lookat(e, w, h) for e in eyes]
+    cam = tt.Camera(w2c=torch.from_numpy(np.stack([x[0] for x in cams])).to(device),
+                    K=torch.from_numpy(np.stack([x[1] for x in cams])).to(device), width=w,
+                    height=h, fov_width=fov and fov[0], fov_height=fov and fov[1],
+                    row_offset=row0)
+    cloud = tt.GaussianCloud(**{k: torch.from_numpy(np.array(v)) for k, v in c.items()})
+    args = tt.activate_cloud(cloud.to(device))
+    rng = np.random.default_rng(len(name))
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    if name == "offset_shared":
+        args.means2d_offset = t(rng.normal(size=(args.n, 2)) * 1e-3)
+    if name == "offset_per_view":
+        args.means2d_offset = t(rng.normal(size=(cam.num_views, args.n, 2)) * 1e-3)
+    if name == "rig100k":
+        binning = demand_binning(*measure_binning_demand(args, cam))
+    else:
+        binning = BinningConfig(tile=16, max_span=256, max_pairs=1 << 18)
+    return args, cam, binning
+
+
+def ulp_gap(a, b) -> int:
+    """The largest distance of two float32 tensors in units in the last
+    place (over zero too: the bit patterns mapped to ordered integers)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+@pytest.mark.parametrize("name", PROJECTION_CASES)
+def test_projection_kernel_matches_plain(cuda, name):
+    """The forward kernel against ``preprocess`` + the table pack on the
+    card: radius and visibility identical, so the binning's gid, start and
+    end are; mean2d, conic and depth within 1 ulp (the largest gap is
+    printed); the masked opacity and colours identical; two launches
+    bitwise identical, one launch each."""
+    import splatpu_torch.render.exact as exact
+    import splatpu_torch.render.project as project
+
+    args, cams, binning = projection_case(name, cuda)
+    before = project.LAUNCHES
+    got = project.project_views_cuda(args, cams)
+    again = project.project_views_cuda(args, cams)
+    torch.cuda.synchronize()
+    assert project.LAUNCHES == before + 2
+    table, radius, visible = got
+    ref_table, ref_radius, ref_visible = project.project_views_plain(args, cams)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(visible, ref_visible)
+    assert torch.equal(radius, ref_radius)
+    assert bool(visible.any()) and not bool(visible.all())
+    gaps = {col: ulp_gap(table[..., i], ref_table[..., i])
+            for i, col in enumerate(("mean2d_x", "mean2d_y", "conic_a", "conic_b", "conic_c"))}
+    gaps["depth"] = ulp_gap(table[..., 6], ref_table[..., 6])
+    print(f"projection {name}: largest ulp gaps {gaps}; values differing "
+          f"{int((table[..., :7] != ref_table[..., :7]).sum())} of {table[..., :7].numel()}")
+    assert max(gaps.values()) <= 1, gaps
+    assert torch.equal(table[..., 5], ref_table[..., 5])
+    assert torch.equal(table[..., 7:], ref_table[..., 7:])
+    streams = exact.bin_projected(args, cams, binning, table, radius, visible)
+    for s, r in zip(streams, exact.bin_views(args, cams, binning)):
+        for f in ("gid", "start", "end", "lane", "offsets", "counts", "total_pairs"):
+            assert torch.equal(getattr(s, f), getattr(r, f)), f
+
+
+@pytest.mark.parametrize("name", PROJECTION_CASES)
+def test_projection_backward_matches_autograd(cuda, name):
+    """The backward kernel (through ``ProjectViews``) against autograd
+    through the plain forward on the card, for a random d(table): within
+    2e-5 of each gradient's largest value, column by column.  Float32 sums
+    in another order: the views summed in order in one thread, the 3D
+    covariance's gradient summed over the views before it goes back through
+    R(q) and s, FMAs.  Two runs bitwise identical; one launch per backward."""
+    import splatpu_torch.render.project as project
+
+    args, cams, _ = projection_case(name, cuda)
+    names = [f for f in project.GRAD_NAMES if getattr(args, f) is not None]
+    d_table = None
+    grads = []
+    for impl in ("cuda", "cuda", "plain"):
+        leaves = {f: getattr(args, f).clone().requires_grad_(True) for f in names}
+        largs = tt.RenderArgs(**leaves)
+        if impl == "cuda":
+            table = project.project_views(largs, cams)[0]
+        else:
+            table = project.project_views_plain(largs, cams)[0]
+        if d_table is None:
+            rng = np.random.default_rng(5)
+            d_table = torch.tensor(rng.normal(size=table.shape).astype(np.float32), device=cuda)
+        before = project.BWD_LAUNCHES
+        grads.append(torch.autograd.grad((table * d_table).sum(), list(leaves.values())))
+        assert project.BWD_LAUNCHES == before + (impl == "cuda")
+    got, again, ref = grads
+    errs = {f: row_scaled_err(a, b) for f, a, b in zip(names, got, ref)}
+    print(f"projection {name}: backward column-scaled errors {errs}")
+    for f, a, b, c in zip(names, got, again, ref):
+        assert torch.isfinite(a).all() and float(c.abs().max()) > 0, f
+        assert torch.equal(a, b), f
+        assert errs[f] <= 2e-5, f
+
+
+def test_render_makes_one_projection_launch_each_way(cuda):
+    """``render(impl="cuda")``: one forward and one backward launch of the
+    projection kernel for all views; ``impl="plain"``: none."""
+    import splatpu_torch.render.project as project
+    from splatpu_torch.render.api import render
+
+    args, cams, binning = projection_case("fixture", cuda)
+    for impl, expected in (("cuda", (1, 1)), ("plain", (0, 0))):
+        leaves = {f: getattr(args, f).clone().requires_grad_(True)
+                  for f in ("means3d", "colors", "rotations", "opacities", "scales")}
+        before = (project.LAUNCHES, project.BWD_LAUNCHES)
+        out = render(tt.RenderArgs(**leaves), cams, impl=impl, config=binning)
+        out.image.square().mean().backward()
+        torch.cuda.synchronize()
+        assert (project.LAUNCHES - before[0], project.BWD_LAUNCHES - before[1]) == expected
+
+
+def test_stage2_step_cuda_matches_plain_within_benchmark_limits(cuda):
+    """One stage-2 step (deform, 3-view render, L1 + SSIM + rigidity,
+    backward) through ``render(impl="cuda")`` (the projection kernel, K1,
+    K2, the routing) against ``impl="plain"`` on the card: the loss's
+    relative gap and the worst network leaf's gradient gap (|norm - norm|
+    over the larger of the leaf's and the median leaf's norm) within the
+    tightest of ``splatbench/limits/``' numbers for them."""
+    import json
+    import statistics
+
+    import splatpu_torch.train.stage2 as ts2
+    from _np_scenes import np_cloud, np_lookat
+
+    root = Path(__file__).resolve().parents[1]
+    limits = [json.loads(p.read_text())["limits"]
+              for p in sorted((root / "splatbench" / "limits").glob("train.*.json"))]
+    loss_limit = min(x["loss"] for x in limits)
+    grad_limit = min(x["grad"] for x in limits)
+    w, h = 96, 64
+    binning = BinningConfig(tile=16, max_span=256, max_pairs=1 << 16)
+    cams = [np_lookat((3.5 * np.sin(a), 0.3, -3.5 * np.cos(a)), w, h) for a in (0.0, 0.9, 2.0)]
+    w2c = torch.from_numpy(np.stack([c[0] for c in cams])).to(cuda)
+    K = torch.from_numpy(np.stack([c[1] for c in cams])).to(cuda)
+    images = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (3, 3, h, w))
+                              .astype(np.float32)).to(cuda)
+    cloud = tt.GaussianCloud(**{k: torch.from_numpy(np.array(v))
+                                for k, v in np_cloud(7, 2000).items()})
+    runs = {}
+    for impl in ("cuda", "plain"):
+        config = ts2.Stage2Config(total_iterations=1, warmup_iterations=0, hidden_dim=32,
+                                  residual_blocks=1, views_per_step=3, timestep_count=1,
+                                  renderer=impl, binning=binning)
+        state = ts2.setup(cloud.to(cuda), config, device=cuda)
+        enc, fg = ts2.snapshot_previous(state.cloud, state.fg_idx, state.neighbor_info)
+        _, _, metrics = ts2.make_step(config, state, w, h)(enc, fg, 1.0, w2c, K, images, binning)
+        runs[impl] = (float(metrics["total"]),
+                      {n: p.grad.detach().clone() for n, p in state.net.named_parameters()})
+    (loss, grads), (ref_loss, ref_grads) = runs["cuda"], runs["plain"]
+    norm = lambda x: float(torch.linalg.vector_norm(x.double()))  # noqa: E731
+    med = statistics.median(norm(g) for g in ref_grads.values())
+    gaps = {k: abs(norm(grads[k]) - norm(g)) / max(norm(g), med) for k, g in ref_grads.items()}
+    print(f"stage-2 step: loss {loss} / {ref_loss}, worst grad gap {max(gaps.values()):.3e}")
+    assert abs(loss - ref_loss) / abs(ref_loss) <= loss_limit
+    assert max(gaps.values()) <= grad_limit

@@ -151,7 +151,8 @@ def test_take_counts_sums_the_profiled_views(binning):
     if span_small < binning.max_span:
         lanes += binning.resolved_big_capacity(n) * binning.max_span
     pairs = [int(s.total_pairs) for s in streams]
-    assert got == {"views": 2, "pairs_kept": sum(min(p, binning.max_pairs) for p in pairs),
+    assert got == {"views": 2, "views_projected": 0,
+                   "pairs_kept": sum(min(p, binning.max_pairs) for p in pairs),
                    "lane_slots": 2 * lanes, "budget_slots": 2 * binning.max_pairs}
     assert 0 < got["pairs_kept"] <= got["lane_slots"]
     if binning.max_pairs == 300:
