@@ -74,9 +74,11 @@ Phases, each printed with its wall time and bounded by a watchdog:
    Every kernel count is zeroed just before ``train`` and read just after;
    each step must launch its path's forward, backward and the routing
    kernel once, and no other composite.  Every render of the exact path
-   (K1/K2 or K4, not the padded path's, not stage 1's ``render_dual``)
-   also launches the projection kernel once forward and once backward,
-   and the serve, train, cli, dist, acceptance and bench phases expect it.
+   (K1/K2 or K4, not the padded path's) also launches the projection
+   kernel once forward and once backward, and the serve, train, cli,
+   dist, acceptance and bench phases expect it; stage 1's ``render_dual``
+   launches it once each way for its two composites, and the stage-1
+   phases expect one projection per iteration.
 10. measure, measure_manual, measure_padded: each forward kernel at the
    served shapes (the t=0 frame's inputs) against its plain version, CUDA-
    event times of both, and the bound from this run's bytes and the work
@@ -97,7 +99,10 @@ Phases, each printed with its wall time and bounded by a watchdog:
    Gaussians and of config 4's 250,000, its table, radius and visibility
    bitwise the plain version's, its backward against the plain analytic
    backward (BWD_TOL scaled per column), ms per forward and per backward
-   launch beside the bound by bytes and the plain version's ms.
+   launch beside the bound by bytes and the plain version's ms; and
+   measure_dual_projection: its dual launch (``render_dual``'s two tables)
+   at the fit's shape, one rig view of config 4's truth in 500,224 slots,
+   the first three outputs bitwise the single launch's, ms each way.
 
 12. bwd_tiles: at 5 x 320x180 with 8 and 24 px tiles (``NEW_BWD_TILES``):
    K1 and K4's forward there against their plain versions (``last``
@@ -370,6 +375,7 @@ ACCEPT4_TRUTH = ROOT / "runs" / "acceptance_truth" / "truth_n250000.npz"  # BASE
 ACCEPT4_FIRST_LOSS = ROOT / "runs" / "acceptance_truth" / "first_loss_jax_cpu_n250000.json"
 ACCEPT4_TPU = ROOT / "runs" / "acceptance_truth" / "config4_tpu_reference.json"
 ACCEPT4_POINTS = 83_333     # acceptance_config4: every third of the truth
+FIT_SLOTS = 500_224         # the fit cell's slots: 83,333 points x 6.0, rounded up to 256
 ACCEPT4_ITERATIONS = 20     # acceptance_config4: stage-1 iterations (config 4: 15,000)
 ACCEPT4_PRUNE = 0.05        # the TPU run's final prune
 ACCEPT4_STAGE2 = (2, 2)     # acceptance_config4: sequence iterations x timesteps (30 x 150)
@@ -672,8 +678,9 @@ def check_only(counts: dict, expected: set, where: str) -> None:
 
 
 # The exact path's render under impl="cuda" projects its views through the
-# projection kernel once per composite launch, forward and backward (stage
-# 1's render_dual and the padded path keep preprocess).
+# projection kernel once per composite launch, forward and backward (the
+# padded path keeps preprocess; stage 1's render_dual projects once for its
+# two composites: ``check_stage1_counts``).
 PROJECTION_OF = {"composite_fwd": "project_fwd", "composite_manual_fwd": "project_fwd",
                  "composite_bwd": "project_bwd", "composite_manual_bwd": "project_bwd"}
 
@@ -683,6 +690,20 @@ def projected(expected):
     kernels that go with its composites, in the same kind of collection."""
     extra = sorted({PROJECTION_OF[k] for k in expected if k in PROJECTION_OF})
     return type(expected)([*expected, *extra])
+
+
+def check_stage1_counts(counts: dict, composites: set, iterations: int, where: str) -> None:
+    """Stage 1 through ``composites``: each launched twice per iteration
+    (``render_dual``'s two composites), the projection kernel once each way
+    per iteration where the path projects (K1/K2, K4), nothing else."""
+    expected = {k: 2 * iterations for k in composites}
+    if composites & set(PROJECTION_OF):
+        expected.update(project_fwd=iterations, project_bwd=iterations)
+    for k, n in expected.items():
+        if counts[k] != n:
+            fail(f"{where}: {k} launched {counts[k]} times in {iterations} iterations,"
+                 f" expected {n}")
+    check_only(counts, set(expected), where)
 
 
 def fwd_bound(c, v, hw, evals, contribs, bytes_in):
@@ -1780,11 +1801,8 @@ def stage1_path(dev, pc, views, radius):
         fail("stage1: binning overflow left at the last iteration")
     if sum(1 for i in ev_ms if mutation(i)) != 2:
         fail("stage1: expected the mutations at 500 and 600")
-    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
-    for k in expected:
-        if counts[k] != 2 * S1_ITERATIONS:
-            fail(f"stage1: {k} launched {counts[k]} times, expected 2 per iteration")
-    check_only(counts, expected, "stage1")
+    check_stage1_counts(counts, {"composite_fwd", "composite_bwd", "route_pairs"},
+                        S1_ITERATIONS, "stage1")
     return counts, cloud, seen["binning"]
 
 
@@ -1884,12 +1902,8 @@ def stage1_options_path(dev, pc, views, radius):
     if not all(same.values()):
         fail("stage1_options: two resumes from one checkpoint differ")
     n_its = S1_OPTION_ITERATIONS[0] + 2 * (S1_OPTION_ITERATIONS[1] - S1_OPTION_ITERATIONS[0])
-    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
-    for k in expected:
-        if out["stage1_options"][k] != 2 * n_its:
-            fail(f"stage1_options: {k} launched {out['stage1_options'][k]} times in {n_its}"
-                 " iterations")
-    check_only(out["stage1_options"], expected, "stage1_options")
+    check_stage1_counts(out["stage1_options"], {"composite_fwd", "composite_bwd", "route_pairs"},
+                        n_its, "stage1_options")
     for name, changes, expected in (
         ("stage1_manual", dict(binning_overrides={"kernel": "manual"}),
          {"composite_manual_fwd", "composite_manual_bwd", "route_pairs"}),
@@ -1910,10 +1924,7 @@ def stage1_options_path(dev, pc, views, radius):
               f" launches {counts}", flush=True)
         if not all(np.isfinite(m["total_loss"]) for _, m in rows):
             fail(f"{name}: a non-finite loss")
-        for k in expected:
-            if counts[k] != 2 * S1_PATH_ITERATIONS:
-                fail(f"{name}: {k} launched {counts[k]} times, expected 2 per iteration")
-        check_only(counts, expected, name)
+        check_stage1_counts(counts, expected, S1_PATH_ITERATIONS, name)
     return out
 
 
@@ -2000,11 +2011,8 @@ def cli_densify_path(dev, pc, views):
         fail("cli_densify: a non-finite loss")
     if cloud.capacity % 256 or int(cloud.n_alive()) != int(rows[-1]["n_alive"]):
         fail("cli_densify: the written cloud does not hold the fit's alive Gaussians")
-    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
-    for k in expected:
-        if counts[k] != 2 * S1_CLI_ITERATIONS[1]:
-            fail(f"cli_densify: {k} launched {counts[k]} times")
-    check_only(counts, expected, "cli_densify")
+    check_stage1_counts(counts, {"composite_fwd", "composite_bwd", "route_pairs"},
+                        S1_CLI_ITERATIONS[1], "cli_densify")
     return counts
 
 
@@ -2289,13 +2297,10 @@ def dist_stage1_path(dev, pc, views, radius, card):
         fail(f"dist_stage1: parameters outside rtol 1e-4, atol 1e-6: {gate}")
     if not same:
         fail("dist_stage1: the ranks' clouds differ")
-    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
     for i, r in enumerate(results):
-        if any(r["counts"][k] != 2 * DIST_S1_ITERATIONS for k in expected):
-            fail(f"dist_stage1: rank {i} launched {r['counts']}")
-    total = rank_totals(results)
-    check_only(total, expected, "dist_stage1")
-    return total
+        check_stage1_counts(r["counts"], {"composite_fwd", "composite_bwd", "route_pairs"},
+                            DIST_S1_ITERATIONS, f"dist_stage1, rank {i}")
+    return rank_totals(results)
 
 
 def train_batch_path(dev, cloud):
@@ -2416,13 +2421,15 @@ def counted_stage1(argv: list):
 
 
 def check_stage1_launches(where: str, launched: list, counts: dict) -> None:
-    """Every iteration launched K1, K2 and the routing twice, nothing else."""
-    expected = {"composite_fwd", "composite_bwd", "route_pairs"}
+    """Every iteration launched K1, K2 and the routing twice and the
+    projection kernel once each way, nothing else."""
+    expected = {"composite_fwd": 2, "composite_bwd": 2, "route_pairs": 2, "project_fwd": 1,
+                "project_bwd": 1}
     for i, c in enumerate(launched):
-        bad = {k: n for k, n in c.items() if n != (2 if k in expected else 0)}
+        bad = {k: n for k, n in c.items() if n != expected.get(k, 0)}
         if bad:
-            fail(f"{where}: iteration {i} launched {bad}, expected 2 each of {sorted(expected)}")
-    check_only(counts, expected, where)
+            fail(f"{where}: iteration {i} launched {bad}, expected {expected}")
+    check_only(counts, set(expected), where)
 
 
 def ulps(a, b):
@@ -2795,16 +2802,90 @@ def bench_path(dev):
     return counts
 
 
-def projection_bytes(v, n, c) -> tuple[int, int]:
+def projection_bytes(v, n, c, cb=0, offset=0) -> tuple[int, int]:
     """(forward, backward) bytes of the projection kernel over V views of N
     Gaussians of C colours, each read once and each output written once:
     forward the Gaussian's 11 + C floats in, the table (7 + C floats),
     radius and visibility out per view; backward d(table) and visibility
     per view and means, scales, rotations in, the 11 + C floats of the
-    gradients out.  The cameras (25 floats a view) are left out."""
-    fwd = 4 * n * (11 + c) + v * n * (4 * (7 + c) + 4 + 1)
-    bwd = v * n * (4 * (7 + c) + 1) + 4 * n * 10 + 4 * n * (11 + c)
+    gradients out.  A second colour set of ``cb`` channels adds its
+    colours in and its table out (backward: its d(table) in, its colours'
+    gradient out); ``offset`` floats a Gaussian of ``means2d_offset`` are
+    read forward and their gradient written backward.  The cameras (25
+    floats a view) are left out."""
+    fwd = 4 * n * (11 + c + cb + offset) + v * n * (4 * (7 + c) + 4 + 1)
+    bwd = v * n * (4 * (7 + c) + 1) + 4 * n * 10 + 4 * n * (11 + c + cb + offset)
+    if cb:
+        fwd += v * n * 4 * (7 + cb)
+        bwd += v * n * 4 * (7 + cb)
     return fwd, bwd
+
+
+def measure_dual_projection(dev) -> dict:
+    """The projection kernel's dual launch (``render_dual``'s two tables) at
+    the fit's shape: one 1280x720 rig view of config 4's truth in the
+    fit's 500,224 slots (its dead slots opacity 0), a (1, N, 2) offset
+    collector and the segmentation colours: its first three outputs bitwise
+    the single launch's, its second table the first's columns with the
+    segmentation colours, both tables' backward against the plain analytic
+    backward (BWD_TOL scaled per column); ms per forward and backward
+    launch (CUDA events) beside the bound by bytes and the plain version's
+    ms."""
+    import dataclasses
+
+    import torch
+
+    import splatpu_torch.render.project as project
+    from splatpu_torch.core.types import activate_cloud, cloud_from_arrays
+    from splatpu_torch.io.checkpoint import load_cloud
+    from splatpu_torch.tools.measure import cuda_ms, row_scaled_err
+
+    truth = load_cloud(ACCEPT4_TRUTH, device=dev)
+    cloud = cloud_from_arrays(**truth.param_dict(), capacity=FIT_SLOTS, device=dev)
+    cams = rig_cams(dev, *SERVE_SIZE, 1)
+    v, n = cams.num_views, cloud.capacity
+    args = dataclasses.replace(activate_cloud(cloud), means2d_offset=torch.zeros(
+        (v, n, 2), device=dev))
+    seg = cloud.segmentation_masks.contiguous()
+    got = project.project_views_cuda(args, cams, seg)
+    single = project.project_views_cuda(args, cams)
+    torch.cuda.synchronize()
+    ref = project.project_views_plain(args, cams, seg)
+    same = [torch.equal(a, b) for a, b in zip(got[:3], single)]
+    head = torch.equal(got[3][..., :7], got[0][..., :7]) and torch.equal(
+        got[3][..., 7:], seg.expand(v, -1, -1))
+    differ = [int((a != b).sum()) for a, b in zip(got, ref)]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    d_tables = [torch.randn(x.shape, generator=gen, device=dev) for x in (got[0], got[3])]
+    needs = [True] * 7
+    bwd = lambda: project.project_views_bwd_cuda(  # noqa: E731
+        d_tables[0], args, cams, got[2], needs, d_tables[1])
+    bwd_plain = lambda: project.project_views_bwd_plain(  # noqa: E731
+        d_tables[0], args, cams, got[2], needs, d_tables[1])
+    pairs = list(zip(bwd(), bwd_plain()))
+    errs = [row_scaled_err(a, b) for a, b in pairs]
+    abs_err = max(float((a - b).abs().max()) for a, b in pairs)
+    fwd_ms = cuda_ms(lambda: project.project_views_cuda(args, cams, seg), reps=50, warmup=5)
+    bwd_ms = cuda_ms(bwd, reps=50, warmup=5)
+    plain_fwd_ms = cuda_ms(lambda: project.project_views_plain(args, cams, seg), reps=3,
+                           warmup=1)
+    plain_bwd_ms = cuda_ms(bwd_plain, reps=3, warmup=1)
+    fwd_bytes, bwd_bytes = projection_bytes(v, n, args.colors.shape[1], seg.shape[1], 2 * v)
+    fwd_bound, bwd_bound = 1e3 * fwd_bytes / PEAK_BYTES_S, 1e3 * bwd_bytes / PEAK_BYTES_S
+    print(f"  fit, dual: V={v} N={n}; first three outputs bitwise the single launch's {same},"
+          f" second table {head}; values differing from the plain version {differ}; backward"
+          f" scaled error {max(errs):.3e}", flush=True)
+    print(f"  fit, dual: forward {fwd_ms:.4f} ms/launch, plain {plain_fwd_ms:.2f} ms; bound"
+          f" {fwd_bound:.4f} ms (bytes {fwd_bytes}); backward {bwd_ms:.4f} ms/launch, plain"
+          f" {plain_bwd_ms:.2f} ms; bound {bwd_bound:.4f} ms (bytes {bwd_bytes})", flush=True)
+    if not all(same) or not head:
+        fail(f"projection, fit: the dual launch's tables {same}, {head}")
+    if any(differ):
+        fail(f"projection, fit: outputs differ from the plain version's: {differ}")
+    if not max(errs) <= BWD_TOL:
+        fail(f"projection, fit: backward scaled error {max(errs):.3e} > {BWD_TOL}")
+    return dict(fwd=dict(err=0.0, ms=fwd_ms, plain_ms=plain_fwd_ms, bound=fwd_bound),
+                bwd=dict(err=abs_err, ms=bwd_ms, plain_ms=plain_bwd_ms, bound=bwd_bound))
 
 
 def measure_projection(dev):
@@ -3243,6 +3324,7 @@ def main() -> int:
 
     with phase("measure_projection", 120):
         proj = measure_projection(dev)
+        proj_fit = measure_dual_projection(dev)
 
     with phase("measure_bwd", 300):
         case = bwd_case(args, rig_cams(dev, *SERVE_SIZE, 5), dev, binning=train_binning)
@@ -3484,14 +3566,16 @@ def main() -> int:
     ]
     # The projection: no TPU kernel (splatpu/core/projection.py's preprocess
     # is jnp that XLA fuses); ms at config 3's training shape, config 4's
-    # beside it.
+    # and the fit's dual launch beside it.
     for way in ("fwd", "bwd"):
         entry = kernel_entry(f"project_{way}", "splatpu_torch/csrc/project.cu",
                              "none: splatpu/core/projection.py (jnp, fused by XLA)",
                              by_path(f"project_{way}"), **proj["config 3"][way])
-        c4 = proj["config 4"][way]
+        c4, fit = proj["config 4"][way], proj_fit[way]
         entry.update(config4_ms=c4["ms"], config4_plain_ms=c4["plain_ms"],
-                     config4_bound_ms=c4["bound"][0], config4_max_abs_err=c4["err"])
+                     config4_bound_ms=c4["bound"][0], config4_max_abs_err=c4["err"],
+                     fit_dual_ms=fit["ms"], fit_dual_plain_ms=fit["plain_ms"],
+                     fit_dual_bound_ms=fit["bound"], fit_dual_max_abs_err=fit["err"])
         kernels.append(entry)
     for entry in kernels:
         if not entry["launches"]:

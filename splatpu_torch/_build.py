@@ -64,8 +64,8 @@ LAUNCHERS = {
     "splatpu_padded_fwd": (8, 7, 0),
     "splatpu_padded_bwd": (10, 7, 0),
     "splatpu_route_pairs": (5, 6, 0),
-    "splatpu_project_fwd": (11, 7, 4),
-    "splatpu_project_bwd": (13, 6, 4),
+    "splatpu_project_fwd": (13, 8, 4),
+    "splatpu_project_bwd": (15, 7, 4),
 }
 
 _lib: ctypes.CDLL | None = None

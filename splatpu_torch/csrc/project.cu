@@ -29,6 +29,17 @@
 // order k = 0..3 (6,400 of 6,400 entries); the quaternion's vector_norm
 // adds the squares as (q0^2 + q2^2) + (q1^2 + q3^2) (200,000 of 200,000).
 //
+// Two colour sets (render_dual, stage 1's render).  Given a second colour set
+// colors_b (N, C_b), the same launch writes a second table whose rows hold
+// the same mean2d, conic, masked opacity and depth with colors_b in place
+// of colors; the backward reads both cotangent tables in one launch.  The
+// second table's geometry reaches means3d, scales, rotations and
+// opacities as the first's does, its colour columns go to colors_b, and
+// means2d_offset takes the first table's cotangent only: render_dual's
+// lineage cut (mean2d + (off.detach() - off) * wh, the same values) done
+// here.  Without colors_b the kernels are the single-table instances
+// (template DUAL = false): the same work and the same output.
+//
 // Backward (splatpu_project_bwd).  One thread per Gaussian recomputes each
 // view's forward values (the same code, so the same values) and applies
 // autograd's derivative of each operation of the plain path: the
@@ -43,7 +54,8 @@
 // What bounds it.  The bytes.  Forward: 11 + C floats a Gaussian read,
 // V (8 + C) floats and V bytes written; backward: V (7 + C) floats and V
 // bytes read with the 11 floats of the Gaussian, 11 + C (+ 2 or 2V) floats
-// written.  Each view costs ~150 flops forward and ~400 backward (the
+// written.  A second colour set adds C_b floats read and V (7 + C_b)
+// written forward, V (7 + C_b) read and C_b written backward.  Each view costs ~150 flops forward and ~400 backward (the
 // forward again, then its derivative), so at 5 views the kernels do ~3 and
 // ~7 flops a byte, under the card's ~20 (67 TFLOP/s over 3.35 TB/s).  A
 // thread writes its table rows whole; a warp's 32 rows are contiguous.
@@ -228,14 +240,17 @@ __device__ __forceinline__ void project(const float m[3], const Gauss& g, const 
   p.cc = dvd(p.a, p.ds);
 }
 
+// DUAL: colors_b (N, CB) given; table_b (V, N, 7 + CB) written beside table.
+template <bool DUAL>
 __global__ void __launch_bounds__(THREADS) project_fwd_kernel(
     const float* __restrict__ means, const float* __restrict__ scales,
     const float* __restrict__ rots, const float* __restrict__ opac,
-    const float* __restrict__ colors, const float* __restrict__ offset,
-    const float* __restrict__ w2c, const float* __restrict__ K, float* __restrict__ table,
+    const float* __restrict__ colors, const float* __restrict__ colors_b,
+    const float* __restrict__ offset, const float* __restrict__ w2c,
+    const float* __restrict__ K, float* __restrict__ table, float* __restrict__ table_b,
     float* __restrict__ radius, unsigned char* __restrict__ visible, int V, int N, int C,
-    int offset_mode, int row_offset, float fw, float fh, float inv_w, float inv_h, float p22,
-    float p23) {
+    int CB, int offset_mode, int row_offset, float fw, float fh, float inv_w, float inv_h,
+    float p22, float p23) {
   const int n = blockIdx.x * THREADS + threadIdx.x;
   if (n >= N) return;
   const int rec = 7 + C;
@@ -261,29 +276,36 @@ __global__ void __launch_bounds__(THREADS) project_fwd_kernel(
     const float rad = ceilf(mul(3.0f, __fsqrt_rn(add(mid, disc))));
     const bool vis = p.front && p.valid && rad > 0.0f && op > 0.0f;
     const size_t item = static_cast<size_t>(v) * N + n;
+    const float head[7] = {mx, my, p.ca, p.cb, p.cc, vis ? op : 0.0f, p.p[2]};
     float* row = table + item * rec;
-    row[0] = mx;
-    row[1] = my;
-    row[2] = p.ca;
-    row[3] = p.cb;
-    row[4] = p.cc;
-    row[5] = vis ? op : 0.0f;
-    row[6] = p.p[2];
+#pragma unroll
+    for (int k = 0; k < 7; ++k) row[k] = head[k];
     for (int ch = 0; ch < C; ++ch) row[7 + ch] = __ldg(colors + static_cast<size_t>(n) * C + ch);
+    if (DUAL) {
+      float* row_b = table_b + item * (7 + CB);
+#pragma unroll
+      for (int k = 0; k < 7; ++k) row_b[k] = head[k];
+      for (int ch = 0; ch < CB; ++ch)
+        row_b[7 + ch] = __ldg(colors_b + static_cast<size_t>(n) * CB + ch);
+    }
     radius[item] = vis ? rad : 0.0f;
     visible[item] = vis;
   }
 }
 
-// The gradients a null pointer leaves out are not computed.
+// The gradients a null pointer leaves out are not computed.  DUAL: d_table_b
+// (V, N, 7 + CB) read beside d_table; its first 7 columns are added to
+// d_table's before the geometry's chain (not to the offset's).
+template <bool DUAL>
 __global__ void __launch_bounds__(THREADS) project_bwd_kernel(
-    const float* __restrict__ d_table, const float* __restrict__ means,
-    const float* __restrict__ scales, const float* __restrict__ rots,
-    const unsigned char* __restrict__ visible, const float* __restrict__ w2c,
-    const float* __restrict__ K, float* __restrict__ d_means, float* __restrict__ d_scales,
-    float* __restrict__ d_rots, float* __restrict__ d_opac, float* __restrict__ d_colors,
-    float* __restrict__ d_offset, int V, int N, int C, int offset_mode, float fw, float fh,
-    float inv_w, float inv_h, float p22, float p23) {
+    const float* __restrict__ d_table, const float* __restrict__ d_table_b,
+    const float* __restrict__ means, const float* __restrict__ scales,
+    const float* __restrict__ rots, const unsigned char* __restrict__ visible,
+    const float* __restrict__ w2c, const float* __restrict__ K, float* __restrict__ d_means,
+    float* __restrict__ d_scales, float* __restrict__ d_rots, float* __restrict__ d_opac,
+    float* __restrict__ d_colors, float* __restrict__ d_colors_b, float* __restrict__ d_offset,
+    int V, int N, int C, int CB, int offset_mode, float fw, float fh, float inv_w, float inv_h,
+    float p22, float p23) {
   const int n = blockIdx.x * THREADS + threadIdx.x;
   if (n >= N) return;
   const int rec = 7 + C;
@@ -301,16 +323,24 @@ __global__ void __launch_bounds__(THREADS) project_bwd_kernel(
   const float sx = fw * 0.5f, sy = fh * 0.5f;
   for (int v = 0; v < V; ++v) {
     const size_t item = static_cast<size_t>(v) * N + n;
-    const float* gr = d_table + item * rec;
+    const float* gr0 = d_table + item * rec;
+    // The geometry's cotangents: the first table's, plus the second's.
+    const float* gr = gr0;
+    float both[7];
+    if (DUAL) {
+#pragma unroll
+      for (int k = 0; k < 7; ++k) both[k] = gr0[k] + d_table_b[item * (7 + CB) + k];
+      gr = both;
+    }
     const float gmx = gr[0], gmy = gr[1];
     if (d_opac && visible[item]) dop += gr[5];
     if (d_offset) {
       if (offset_mode == 2) {
-        d_offset[2 * item] = gmx * sx;
-        d_offset[2 * item + 1] = gmy * sy;
+        d_offset[2 * item] = gr0[0] * sx;
+        d_offset[2 * item + 1] = gr0[1] * sy;
       } else {
-        doff[0] += gmx * sx;
-        doff[1] += gmy * sy;
+        doff[0] += gr0[0] * sx;
+        doff[1] += gr0[1] * sy;
       }
     }
     if (!geo) continue;
@@ -333,15 +363,24 @@ __global__ void __launch_bounds__(THREADS) project_bwd_kernel(
     da += ddet * p.c;
     dc += ddet * p.a;
     db += -2.0f * ddet * p.b;
-    // cov2d = JW S JW^T: H = G + G^T with G = [[da, db], [0, dc]].
+    // cov2d = JW S JW^T: H = G + G^T with G = [[da, db], [0, dc]].  DUAL
+    // (stage 1, whose Adam steps each rotation by its own gradient, however
+    // small) sums each entry k <= l once and mirrors it: d(cov3d) exactly
+    // symmetric, so an isotropic Gaussian's rotation gradient is exactly
+    // zero, as autograd's is, and not round-off that Adam would turn into
+    // full-rate steps.
     const float h00 = 2.0f * da, h01 = db, h11 = 2.0f * dc;
 #pragma unroll
     for (int k = 0; k < 3; ++k)
 #pragma unroll
-      for (int l = 0; l < 3; ++l)
-        dS[k][l] += h00 * p.JW[0][k] * p.JW[0][l] +
-                    h01 * (p.JW[0][k] * p.JW[1][l] + p.JW[1][k] * p.JW[0][l]) +
-                    h11 * p.JW[1][k] * p.JW[1][l];
+      for (int l = 0; l < 3; ++l) {
+        if (DUAL && l < k) continue;
+        const float d = h00 * p.JW[0][k] * p.JW[0][l] +
+                        h01 * (p.JW[0][k] * p.JW[1][l] + p.JW[1][k] * p.JW[0][l]) +
+                        h11 * p.JW[1][k] * p.JW[1][l];
+        dS[k][l] += d;
+        if (DUAL && l > k) dS[l][k] += d;
+      }
     float dJW[2][3];
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
@@ -382,6 +421,13 @@ __global__ void __launch_bounds__(THREADS) project_bwd_kernel(
       float acc = 0.0f;
       for (int v = 0; v < V; ++v) acc += d_table[(static_cast<size_t>(v) * N + n) * rec + 7 + ch];
       d_colors[static_cast<size_t>(n) * C + ch] = acc;
+    }
+  if (DUAL && d_colors_b)
+    for (int ch = 0; ch < CB; ++ch) {
+      float acc = 0.0f;
+      for (int v = 0; v < V; ++v)
+        acc += d_table_b[(static_cast<size_t>(v) * N + n) * (7 + CB) + 7 + ch];
+      d_colors_b[static_cast<size_t>(n) * CB + ch] = acc;
     }
   if (!geo) return;
   if (d_means)
@@ -424,48 +470,60 @@ __global__ void __launch_bounds__(THREADS) project_bwd_kernel(
 
 extern "C" {
 
-// The forward: table (V, N, 7 + C), radius (V, N), visible (V, N) bytes.
-// offset_mode: 0 none, 1 one (N, 2) offset for every view, 2 (V, N, 2).
-// Returns cudaGetLastError() (0 on success).
+// The forward: table (V, N, 7 + C), radius (V, N), visible (V, N) bytes, and
+// with a second colour set (colors_b (N, C_b), C_b > 0) table_b (V, N,
+// 7 + C_b); C_b 0 and null pointers without one.  offset_mode: 0 none, 1
+// one (N, 2) offset for every view, 2 (V, N, 2).  Returns
+// cudaGetLastError() (0 on success).
 int splatpu_project_fwd(const void* means, const void* scales, const void* rots,
-                        const void* opac, const void* colors, const void* offset,
-                        const void* w2c, const void* K, void* table, void* radius,
-                        void* visible, int V, int N, int C, int offset_mode, int fov_w,
-                        int fov_h, int row_offset, float inv_w, float inv_h, float p22,
-                        float p23, void* stream) {
-  if (V < 1 || N < 1 || C < 1 || offset_mode < 0 || offset_mode > 2 || fov_w < 1 || fov_h < 1 ||
-      (offset_mode && !offset))
+                        const void* opac, const void* colors, const void* colors_b,
+                        const void* offset, const void* w2c, const void* K, void* table,
+                        void* table_b, void* radius, void* visible, int V, int N, int C, int CB,
+                        int offset_mode, int fov_w, int fov_h, int row_offset, float inv_w,
+                        float inv_h, float p22, float p23, void* stream) {
+  if (V < 1 || N < 1 || C < 1 || CB < 0 || offset_mode < 0 || offset_mode > 2 || fov_w < 1 ||
+      fov_h < 1 || (offset_mode && !offset) || (CB > 0) != (colors_b != nullptr) ||
+      (CB > 0) != (table_b != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((N + THREADS - 1) / THREADS);
-  project_fwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = CB > 0 ? project_fwd_kernel<true> : project_fwd_kernel<false>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(means), static_cast<const float*>(scales),
       static_cast<const float*>(rots), static_cast<const float*>(opac),
-      static_cast<const float*>(colors), static_cast<const float*>(offset),
-      static_cast<const float*>(w2c), static_cast<const float*>(K), static_cast<float*>(table),
-      static_cast<float*>(radius), static_cast<unsigned char*>(visible), V, N, C, offset_mode,
-      row_offset, static_cast<float>(fov_w), static_cast<float>(fov_h), inv_w, inv_h, p22, p23);
+      static_cast<const float*>(colors), static_cast<const float*>(colors_b),
+      static_cast<const float*>(offset), static_cast<const float*>(w2c),
+      static_cast<const float*>(K), static_cast<float*>(table), static_cast<float*>(table_b),
+      static_cast<float*>(radius), static_cast<unsigned char*>(visible), V, N, C, CB,
+      offset_mode, row_offset, static_cast<float>(fov_w), static_cast<float>(fov_h), inv_w,
+      inv_h, p22, p23);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward of splatpu_project_fwd: d_table (V, N, 7 + C) -> the
-// gradients whose pointers are not null.  Returns cudaGetLastError().
-int splatpu_project_bwd(const void* d_table, const void* means, const void* scales,
-                        const void* rots, const void* visible, const void* w2c, const void* K,
-                        void* d_means, void* d_scales, void* d_rots, void* d_opac,
-                        void* d_colors, void* d_offset, int V, int N, int C, int offset_mode,
-                        int fov_w, int fov_h, float inv_w, float inv_h, float p22, float p23,
+// The backward of splatpu_project_fwd: d_table (V, N, 7 + C), and d_table_b
+// (V, N, 7 + C_b) where the forward had a second colour set (C_b > 0) ->
+// the gradients whose pointers are not null (d_colors_b only with C_b > 0).
+// Returns cudaGetLastError().
+int splatpu_project_bwd(const void* d_table, const void* d_table_b, const void* means,
+                        const void* scales, const void* rots, const void* visible,
+                        const void* w2c, const void* K, void* d_means, void* d_scales,
+                        void* d_rots, void* d_opac, void* d_colors, void* d_colors_b,
+                        void* d_offset, int V, int N, int C, int CB, int offset_mode, int fov_w,
+                        int fov_h, float inv_w, float inv_h, float p22, float p23,
                         void* stream) {
-  if (V < 1 || N < 1 || C < 1 || offset_mode < 0 || offset_mode > 2 || fov_w < 1 || fov_h < 1 ||
-      (d_offset && !offset_mode))
+  if (V < 1 || N < 1 || C < 1 || CB < 0 || offset_mode < 0 || offset_mode > 2 || fov_w < 1 ||
+      fov_h < 1 || (d_offset && !offset_mode) || (CB > 0) != (d_table_b != nullptr) ||
+      (d_colors_b && CB == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((N + THREADS - 1) / THREADS);
-  project_bwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(d_table), static_cast<const float*>(means),
-      static_cast<const float*>(scales), static_cast<const float*>(rots),
-      static_cast<const unsigned char*>(visible), static_cast<const float*>(w2c),
-      static_cast<const float*>(K), static_cast<float*>(d_means), static_cast<float*>(d_scales),
-      static_cast<float*>(d_rots), static_cast<float*>(d_opac), static_cast<float*>(d_colors),
-      static_cast<float*>(d_offset), V, N, C, offset_mode, static_cast<float>(fov_w),
+  auto kernel = CB > 0 ? project_bwd_kernel<true> : project_bwd_kernel<false>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(d_table), static_cast<const float*>(d_table_b),
+      static_cast<const float*>(means), static_cast<const float*>(scales),
+      static_cast<const float*>(rots), static_cast<const unsigned char*>(visible),
+      static_cast<const float*>(w2c), static_cast<const float*>(K), static_cast<float*>(d_means),
+      static_cast<float*>(d_scales), static_cast<float*>(d_rots), static_cast<float*>(d_opac),
+      static_cast<float*>(d_colors), static_cast<float*>(d_colors_b),
+      static_cast<float*>(d_offset), V, N, C, CB, offset_mode, static_cast<float>(fov_w),
       static_cast<float>(fov_h), inv_w, inv_h, p22, p23);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,6 +32,8 @@ differentiable in the per-Gaussian inputs and ``bg``.
 render: one preprocess and binning per view, two composites (the image
 from ``args.colors``, the segmentation from ``colors_b``), and the
 ``means2d_offset`` collector's gradient from the first composite only.
+Under ``impl="cuda"`` one kernel launch projects every view and packs
+both tables (``render/project.py``).
 """
 
 from __future__ import annotations
@@ -39,12 +41,14 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.profiler import record_function
 
 from splatpu_torch.core.projection import offset_pixel_scale, preprocess, tile_rect
 from splatpu_torch.core.types import Camera, RenderArgs
 from splatpu_torch.render.binning import DEFAULT_TILE, BinningConfig, pair_streams, tile_grid
 from splatpu_torch.render.exact import (
     background,
+    bin_projected,
     bin_views,
     check_kernel_limits,
     composite_streams,
@@ -52,6 +56,7 @@ from splatpu_torch.render.exact import (
 )
 from splatpu_torch.render.oracle import render_oracle
 from splatpu_torch.render.padded import composite_stream, render_padded
+from splatpu_torch.render.project import project_views
 from splatpu_torch.render.stream import composite_pairs, render_stream, stream_output
 from splatpu_torch.render.types import RenderOutput
 
@@ -108,6 +113,10 @@ def render_dual(
     ``mean2d + (off.detach() - off) * wh``: the same values bit for bit,
     with the offset's lineage cancelled.  ``bg`` (default zeros) serves
     both, so ``colors_b`` has the primary's channel count when it is given.
+    Under ``impl="cuda"`` the views are projected and both tables packed by
+    one ``project_views`` node (a ``record_function`` range ``preprocess``),
+    whose backward keeps the same contract; every other impl preprocesses
+    each view and cuts the lineage here.
     """
     impl = resolve_impl(impl, args.means3d.device)
     if impl == "oracle":
@@ -131,11 +140,18 @@ def render_dual(
 
     if impl in ("cuda", "plain"):
         check_kernel_limits(config, args.colors.shape[1])
-        streams = bin_views(args, camera, config)
-        mean2d_b = [lineage_cut(i, s.splats.mean2d) for i, s in enumerate(streams)]
+        if impl == "cuda":
+            with record_function("preprocess"):
+                table, radius, visible, table_b = project_views(args, camera, colors_b=colors_b)
+            streams = bin_projected(args, camera, config, table, radius, visible)
+            packed = dict(table=table), dict(table=table_b)
+        else:
+            streams = bin_views(args, camera, config)
+            packed = {}, dict(mean2d=[lineage_cut(i, s.splats.mean2d)
+                                      for i, s in enumerate(streams)])
         return (
-            composite_streams(streams, camera, config, bg, args.colors, impl=impl),
-            composite_streams(streams, camera, config, bg, colors_b, impl=impl, mean2d=mean2d_b),
+            composite_streams(streams, camera, config, bg, args.colors, impl=impl, **packed[0]),
+            composite_streams(streams, camera, config, bg, colors_b, impl=impl, **packed[1]),
         )
     streams = pair_streams(args, camera, config)
     mean2d_b = [lineage_cut(i, s.splats.mean2d) for i, s in enumerate(streams)]

@@ -44,10 +44,10 @@ messages), ``"manual"`` runs K4 (up to 9 channels, any budget).  Binning
 computes integers only and runs without autograd; the per-Gaussian table
 is packed from ``preprocess``'s outputs by differentiable ops, so
 gradients reach means, rotations, scales, opacities and colours through
-preprocess by ordinary autograd.  ``render_exact`` under ``impl="cuda"``
-projects and packs every view in one autograd node instead
-(``render/project.py``: one kernel launch forward, one backward) and bins
-each view from slices of its outputs.
+preprocess by ordinary autograd.  ``render_exact`` (and ``render_dual``)
+under ``impl="cuda"`` projects and packs every view in one autograd node
+instead (``render/project.py``: one kernel launch forward, one backward)
+and bins each view from slices of its outputs.
 """
 
 from __future__ import annotations

@@ -3,11 +3,16 @@ table pack for all V views in one CUDA launch forward and one backward
 (``csrc/project.cu``).
 
 ``ProjectViews`` is one autograd node, differentiable in ``means3d``,
-``scales``, ``rotations``, ``opacities``, ``colors`` and ``means2d_offset``
-(nothing reaches the camera).  Its outputs: the table (V, N, 7 + C) that
-``render/composite.py::pack_table`` packs per view (mean2d, conic, opacity
-masked by visibility, depth, colours), ``radius`` (V, N) and ``visible``
-(V, N), the last two not differentiable.
+``scales``, ``rotations``, ``opacities``, ``colors``, ``means2d_offset``
+and ``colors_b`` (nothing reaches the camera).  Its outputs: the table
+(V, N, 7 + C) that ``render/composite.py::pack_table`` packs per view
+(mean2d, conic, opacity masked by visibility, depth, colours), ``radius``
+(V, N) and ``visible`` (V, N), the last two not differentiable; and where
+a second colour set ``colors_b`` (N, C_b) is given (``render_dual``), a
+second table (V, N, 7 + C_b) with the same first seven columns and
+``colors_b``'s.  The second table's cotangent reaches every input as the
+first's does, but ``means2d_offset``, which takes the first table's only:
+``render_dual``'s lineage cut.
 
 ``KERNELS`` maps an impl to its (forward, backward):
 
@@ -19,8 +24,8 @@ masked by visibility, depth, colours), ``radius`` (V, N) and ``visible``
   computes, formula for formula, so that the CPU tests hold the kernel's
   mathematics to autograd through ``preprocess``.
 
-``render_exact`` under ``impl="cuda"`` projects through ``"cuda"``; every
-other caller of ``preprocess`` keeps it.
+``render_exact`` and ``render_dual`` under ``impl="cuda"`` project through
+``"cuda"``; every other caller of ``preprocess`` keeps it.
 """
 
 from __future__ import annotations
@@ -41,33 +46,46 @@ BWD_LAUNCHES = 0  # by project_views_bwd_cuda
 GRAD_NAMES = ("means3d", "scales", "rotations", "opacities", "colors", "means2d_offset")
 
 
-def project_views_plain(args: RenderArgs, camera: Camera):
-    """(table (V, N, 7 + C), radius (V, N), visible (V, N)): ``preprocess``
-    of each view, its table packed with the visibility-masked opacity."""
-    tables, radii, visible = [], [], []
+def project_views_plain(args: RenderArgs, camera: Camera, colors_b=None):
+    """(table (V, N, 7 + C), radius (V, N), visible (V, N)), and table_b
+    (V, N, 7 + C_b) after them where ``colors_b`` is given: ``preprocess``
+    of each view, its table packed with the visibility-masked opacity (and
+    again with ``colors_b``)."""
+    tables, tables_b, radii, visible = [], [], [], []
     op = args.opacities[:, 0]
     for i in range(camera.num_views):
         sp = preprocess(args.for_view(i), camera.view(i))
         g_opacity = torch.where(sp.visible, op, torch.zeros_like(op))
         tables.append(pack_table(sp.mean2d, sp.conic, g_opacity, sp.depth, args.colors))
+        if colors_b is not None:
+            tables_b.append(pack_table(sp.mean2d, sp.conic, g_opacity, sp.depth, colors_b))
         radii.append(sp.radius)
         visible.append(sp.visible)
-    return torch.stack(tables), torch.stack(radii), torch.stack(visible)
+    out = torch.stack(tables), torch.stack(radii), torch.stack(visible)
+    return out if colors_b is None else (*out, torch.stack(tables_b))
 
 
 @torch.no_grad()
-def project_views_bwd_plain(d_table, args: RenderArgs, camera: Camera, visible, needs):
+def project_views_bwd_plain(d_table, args: RenderArgs, camera: Camera, visible, needs,
+                            d_table_b=None):
     """The gradients of ``GRAD_NAMES`` (None where ``needs`` is False) from
-    d(table): autograd's derivative of each operation of
-    ``project_views_plain``, as ``csrc/project.cu``'s backward computes it,
-    the views summed in order."""
+    d(table), and with ``d_table_b`` (the second table's) that of
+    ``colors_b`` after them (``needs[6]``): autograd's derivative of each
+    operation of ``project_views_plain``, as ``csrc/project.cu``'s backward
+    computes it, the views summed in order.  The second table's first seven
+    columns are added to the first's before the geometry's chain; the
+    offset takes the first's only."""
     means, scales, rotations = args.means3d, args.scales, args.rotations
     v_count, c = d_table.shape[0], d_table.shape[2] - 7
-    out = dict.fromkeys(GRAD_NAMES)
+    names = GRAD_NAMES if d_table_b is None else (*GRAD_NAMES, "colors_b")
+    out = dict.fromkeys(names)
+    geom = d_table[..., :7] if d_table_b is None else d_table[..., :7] + d_table_b[..., :7]
     if needs[3]:
-        out["opacities"] = torch.where(visible, d_table[..., 5], 0.0).sum(0)[:, None]
+        out["opacities"] = torch.where(visible, geom[..., 5], 0.0).sum(0)[:, None]
     if needs[4]:
         out["colors"] = d_table[..., 7:7 + c].sum(0)
+    if d_table_b is not None and needs[6]:
+        out["colors_b"] = d_table_b[..., 7:].sum(0)
     off = args.means2d_offset
     if needs[5]:
         scale = torch.tensor([float(s) * 0.5 for s in projection_size(camera)],
@@ -75,12 +93,12 @@ def project_views_bwd_plain(d_table, args: RenderArgs, camera: Camera, visible, 
         d_off = d_table[..., :2] * scale
         out["means2d_offset"] = d_off if off.dim() == 3 else d_off.sum(0)
     if not any(needs[:3]):
-        return tuple(out[k] for k in GRAD_NAMES)
+        return tuple(out[k] for k in names)
     d_means = torch.zeros_like(means)
     d_cov = [[0.0] * 3 for _ in range(3)]  # d(cov3d) + its transpose, over the views
     for v in range(v_count):
         t = projection_terms(args.for_view(v), camera.view(v))
-        g = d_table[v]
+        g = geom[v]
         # mean2d <- ndc <- p_hom rows 0, 1 and (through p_w) 3.
         d_ndc = (g[:, :2] * 0.5) * t["wh"]
         d_ph = d_ndc * t["p_w"][:, None]
@@ -97,13 +115,19 @@ def project_views_bwd_plain(d_table, args: RenderArgs, camera: Camera, visible, 
         ddet = torch.where(t["det_valid"], dds, 0.0)
         da, dc, db = da + ddet * cc, dc + ddet * a, db - 2.0 * ddet * b
         # cov2d = JW cov3d JW^T: H = G + G^T with G = [[da, db], [0, dc]].
+        # With two tables each entry k <= l is summed once and mirrored, as
+        # the kernel's dual instance does: d(cov3d) exactly symmetric.
         JW = t["JW"]
         h00, h01, h11 = 2.0 * da, db, 2.0 * dc
         for k in range(3):
             for l in range(3):
-                d_cov[k][l] = d_cov[k][l] + (h00 * JW[0][k] * JW[0][l]
-                                             + h01 * (JW[0][k] * JW[1][l] + JW[1][k] * JW[0][l])
-                                             + h11 * JW[1][k] * JW[1][l])
+                if d_table_b is not None and l < k:
+                    continue
+                d = (h00 * JW[0][k] * JW[0][l] + h01 * (JW[0][k] * JW[1][l] + JW[1][k] * JW[0][l])
+                     + h11 * JW[1][k] * JW[1][l])
+                d_cov[k][l] = d_cov[k][l] + d
+                if d_table_b is not None and l > k:
+                    d_cov[l][k] = d_cov[l][k] + d
         cov = t["cov3d"]
         tmp = [[cov[k][0] * JW[r][0] + cov[k][1] * JW[r][1] + cov[k][2] * JW[r][2]
                 for k in range(3)] for r in range(2)]
@@ -159,7 +183,7 @@ def project_views_bwd_plain(d_table, args: RenderArgs, camera: Camera, visible, 
         dnc = -(dq * (qn / nc[:, None])).sum(-1)
         dnorm = torch.where(nrm >= 1e-12, dnc / nrm, 0.0)
         out["rotations"] = dq / nc[:, None] + rotations * dnorm[:, None]
-    return tuple(out[k] for k in GRAD_NAMES)
+    return tuple(out[k] for k in names)
 
 
 def _offset_mode(args: RenderArgs, v: int) -> int:
@@ -186,11 +210,12 @@ def _camera_args(camera: Camera) -> tuple[list, list]:
     return [w, h], [float(x) for x in floats]
 
 
-def _check(args: RenderArgs, camera: Camera):
-    """(V, N, C, w2c (V, 4, 4), K (V, 3, 3)); raise on what the kernels do
-    not take."""
+def _check(args: RenderArgs, camera: Camera, colors_b=None):
+    """(V, N, C, C_b (0 without ``colors_b``), w2c (V, 4, 4), K (V, 3, 3));
+    raise on what the kernels do not take."""
     n = args.n
     c = args.colors.shape[1] if args.colors.dim() == 2 else 0
+    cb = 0 if colors_b is None else colors_b.shape[1] if colors_b.dim() == 2 else -1
     v = camera.num_views
     w2c = camera.w2c.reshape(-1, 4, 4).contiguous()
     K = camera.K.reshape(-1, 3, 3).contiguous()
@@ -198,28 +223,36 @@ def _check(args: RenderArgs, camera: Camera):
                   colors=(n, c), w2c=(v, 4, 4), K=(v, 3, 3))
     tensors = dict(means3d=args.means3d, scales=args.scales, rotations=args.rotations,
                    opacities=args.opacities, colors=args.colors, w2c=w2c, K=K)
+    if colors_b is not None:
+        shapes["colors_b"], tensors["colors_b"] = (n, cb), colors_b
     for name, x in tensors.items():
-        if tuple(x.shape) != shapes[name] or c < 1:
+        if tuple(x.shape) != shapes[name] or c < 1 or (colors_b is not None and cb < 1):
             raise ValueError(f"{name} must have shape {shapes[name]} (C >= 1), got {tuple(x.shape)}")
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be torch.float32, got {x.dtype}")
     if args.means2d_offset is not None and args.means2d_offset.dtype != torch.float32:
         raise TypeError(f"means2d_offset must be torch.float32, got {args.means2d_offset.dtype}")
-    return v, n, c, w2c, K
+    return v, n, c, max(cb, 0), w2c, K
 
 
-def project_views_cuda(args: RenderArgs, camera: Camera):
-    """Launch the forward kernel; every tensor must be a contiguous float32
-    CUDA tensor.  While a profiler records, the views are counted
-    (``obs.profiling.count_projection``)."""
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def project_views_cuda(args: RenderArgs, camera: Camera, colors_b=None):
+    """Launch the forward kernel (one launch, with or without ``colors_b``);
+    every tensor must be a contiguous float32 CUDA tensor.  While a profiler
+    records, the views are counted (``obs.profiling.count_projection``)."""
     global LAUNCHES
-    v, n, c, w2c, K = _check(args, camera)
+    v, n, c, cb, w2c, K = _check(args, camera, colors_b)
     mode = _offset_mode(args, v)
-    off = args.means2d_offset
+    off = args.means2d_offset if mode else None
     ins = (args.means3d, args.scales, args.rotations, args.opacities, args.colors, w2c, K)
-    _build.require_cuda("project_views_cuda", ins + ((off,) if mode else ()))
+    _build.require_cuda("project_views_cuda",
+                        ins + tuple(x for x in (off, colors_b) if x is not None))
     dev = args.means3d.device
     table = torch.empty((v, n, 7 + c), dtype=torch.float32, device=dev)
+    table_b = torch.empty((v, n, 7 + cb), dtype=torch.float32, device=dev) if cb else None
     radius = torch.empty((v, n), dtype=torch.float32, device=dev)
     visible = torch.empty((v, n), dtype=torch.bool, device=dev)
     ints, floats = _camera_args(camera)
@@ -227,38 +260,50 @@ def project_views_cuda(args: RenderArgs, camera: Camera):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.splatpu_project_fwd(
-            *(x.data_ptr() for x in ins[:5]), off.data_ptr() if mode else None,
-            w2c.data_ptr(), K.data_ptr(), table.data_ptr(), radius.data_ptr(),
-            visible.data_ptr(), v, n, c, mode, *ints, camera.row_offset, *floats, stream)
+            *(x.data_ptr() for x in ins[:5]), _ptr(colors_b), _ptr(off), w2c.data_ptr(),
+            K.data_ptr(), table.data_ptr(), _ptr(table_b), radius.data_ptr(),
+            visible.data_ptr(), v, n, c, cb, mode, *ints, camera.row_offset, *floats, stream)
     _build.check_status(lib, code, "project_fwd launch")
     LAUNCHES += 1
     if torch.autograd._profiler_enabled():
         profiling.count_projection(v)
-    return table, radius, visible
+    out = table, radius, visible
+    return out if table_b is None else (*out, table_b)
 
 
-def project_views_bwd_cuda(d_table, args: RenderArgs, camera: Camera, visible, needs):
+def project_views_bwd_cuda(d_table, args: RenderArgs, camera: Camera, visible, needs,
+                           d_table_b=None):
     """Launch the backward kernel: the gradients of ``GRAD_NAMES`` (None
-    where ``needs`` is False) from d(table)."""
+    where ``needs`` is False) from d(table), and with ``d_table_b`` that of
+    ``colors_b`` after them (``needs[6]``), in one launch."""
     global BWD_LAUNCHES
-    v, n, c, w2c, K = _check(args, camera)
+    v, n, c, _, w2c, K = _check(args, camera)
+    cb = 0 if d_table_b is None else d_table_b.shape[-1] - 7
     mode = _offset_mode(args, v)
     ins = (d_table, args.means3d, args.scales, args.rotations, visible, w2c, K)
-    _build.require_cuda("project_views_bwd_cuda", ins)
-    if d_table.shape != (v, n, 7 + c) or d_table.dtype != torch.float32:
-        raise ValueError(f"d_table must be float32 ({v}, {n}, {7 + c}), got "
-                         f"{d_table.dtype} {tuple(d_table.shape)}")
+    _build.require_cuda("project_views_bwd_cuda",
+                        ins + (() if d_table_b is None else (d_table_b,)))
+    for name, x, cols in (("d_table", d_table, c), ("d_table_b", d_table_b, cb)):
+        if x is not None and (x.shape != (v, n, 7 + cols) or x.dtype != torch.float32
+                              or cols < 1):
+            raise ValueError(f"{name} must be float32 ({v}, {n}, 7 + C) with C >= 1, got "
+                             f"{x.dtype} {tuple(x.shape)}")
     like = (args.means3d, args.scales, args.rotations, args.opacities, args.colors,
             args.means2d_offset)
     grads = [torch.empty_like(x) if need and x is not None else None
              for x, need in zip(like, needs)]
+    colors_b_grad = None
+    if d_table_b is not None:
+        colors_b_grad = torch.empty((n, cb), device=d_table.device) if needs[6] else None
+        grads.append(colors_b_grad)
     ints, floats = _camera_args(camera)
     lib = _build.load_library()
     with torch.cuda.device(d_table.device):
         stream = torch.cuda.current_stream(d_table.device).cuda_stream
         code = lib.splatpu_project_bwd(
-            *(x.data_ptr() for x in ins), *(x.data_ptr() if x is not None else None for x in grads),
-            v, n, c, mode, *ints, *floats, stream)
+            d_table.data_ptr(), _ptr(d_table_b), *(x.data_ptr() for x in ins[1:]),
+            *(_ptr(x) for x in grads[:5]), _ptr(colors_b_grad), _ptr(grads[5]),
+            v, n, c, cb, mode, *ints, *floats, stream)
     _build.check_status(lib, code, "project_bwd launch")
     BWD_LAUNCHES += 1
     return tuple(grads)
@@ -271,36 +316,45 @@ KERNELS = {
 
 
 class ProjectViews(torch.autograd.Function):
-    """Every view of ``camera`` projected and packed at once; ``impl`` is a
-    key of ``KERNELS``."""
+    """Every view of ``camera`` projected and packed at once, with a second
+    table where ``colors_b`` is given; ``impl`` is a key of ``KERNELS``."""
 
     @staticmethod
-    def forward(ctx, means3d, scales, rotations, opacities, colors, means2d_offset, camera, impl):
+    def forward(ctx, means3d, scales, rotations, opacities, colors, means2d_offset, colors_b,
+                camera, impl):
         args = RenderArgs(means3d=means3d, scales=scales, rotations=rotations,
                           opacities=opacities, colors=colors, means2d_offset=means2d_offset)
-        table, radius, visible = KERNELS[impl][0](args, camera)
+        fwd = KERNELS[impl][0]
+        out = fwd(args, camera) if colors_b is None else fwd(args, camera, colors_b)
         ctx.save_for_backward(means3d, scales, rotations, opacities, colors, means2d_offset,
-                              camera.w2c, camera.K, visible)
-        ctx.camera, ctx.impl = camera, impl
-        ctx.mark_non_differentiable(radius, visible)
-        return table, radius, visible
+                              camera.w2c, camera.K, out[2])
+        ctx.camera, ctx.impl, ctx.dual = camera, impl, colors_b is not None
+        ctx.mark_non_differentiable(out[1], out[2])
+        return out
 
     @staticmethod
-    def backward(ctx, d_table, _d_radius, _d_visible):
+    def backward(ctx, d_table, _d_radius, _d_visible, d_table_b=None):
         means3d, scales, rotations, opacities, colors, off, _, _, visible = ctx.saved_tensors
         args = RenderArgs(means3d=means3d, scales=scales, rotations=rotations,
                           opacities=opacities, colors=colors, means2d_offset=off)
-        needs = ctx.needs_input_grad[:6]
-        grads = KERNELS[ctx.impl][1](d_table.contiguous(), args, ctx.camera, visible, needs)
+        bwd = KERNELS[ctx.impl][1]
+        if ctx.dual:
+            grads = bwd(d_table.contiguous(), args, ctx.camera, visible,
+                        ctx.needs_input_grad[:7], d_table_b.contiguous())
+        else:
+            grads = (*bwd(d_table.contiguous(), args, ctx.camera, visible,
+                          ctx.needs_input_grad[:6]), None)
         return (*grads, None, None)
 
 
-def project_views(args: RenderArgs, camera: Camera, impl: str = "cuda"):
+def project_views(args: RenderArgs, camera: Camera, impl: str = "cuda", colors_b=None):
     """(table (V, N, 7 + C), radius (V, N), visible (V, N)) of every view of
-    ``camera`` (one autograd node).  The camera takes no gradient."""
+    ``camera`` (one autograd node), and table_b (V, N, 7 + C_b) after them
+    where a second colour set ``colors_b`` (N, C_b) is given.  The camera
+    takes no gradient."""
     if camera.w2c.requires_grad or camera.K.requires_grad:
         raise ValueError("project_views takes no gradient of the camera")
     ins = [x if x is None else x.contiguous()
            for x in (args.means3d, args.scales, args.rotations, args.opacities, args.colors,
-                     args.means2d_offset)]
+                     args.means2d_offset, colors_b)]
     return ProjectViews.apply(*ins, camera, impl)

@@ -3,8 +3,8 @@
 
 Each iteration renders the sampled views of timestep 0 through
 ``render_dual`` (one preprocess and binning per view, an image and a
-segmentation composite: K1/K2 and the routing kernel twice per view on the
-card; K4 under ``binning_overrides={"kernel": "manual"}``; K5 under
+segmentation composite: on the card one projection launch each way for
+both tables, K1/K2 and the routing kernel twice per view; K4 under ``binning_overrides={"kernel": "manual"}``; K5 under
 ``renderer="cuda_padded"`` with a 16 px tile), takes image_loss + 3 x the
 segmentation's image_loss (the mean over the views when
 ``views_per_step > 1``), and back-propagates into the cloud's parameters

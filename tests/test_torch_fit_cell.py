@@ -20,7 +20,7 @@ from splatbench import faults_fit, run  # noqa: E402
 from splatbench.tests import tiny_fit  # noqa: E402
 
 FIT_METRICS = {"wide_pair_share.fit", "wide_emit_host_ms.fit", "mutation_host_ms.fit",
-               "fit_idle.fit", "fit_launches.fit", "fit_mfu.fit"}
+               "fit_idle.fit", "fit_launches.fit", "fit_mfu.fit", "fit_projection_share.fit"}
 
 
 @pytest.fixture(scope="module")
@@ -46,6 +46,8 @@ def test_fit_cell_traced_run_is_correct_and_reads_its_metrics(root):
     assert 0 < res["metrics"]["wide_pair_share.fit"]["value"] <= 100
     assert res["metrics"]["mutation_host_ms.fit"]["value"] > 0
     assert res["metrics"]["fit_launches.fit"]["value"] == 0
+    # The plain versions project each view with preprocess: no kernel view.
+    assert res["metrics"]["fit_projection_share.fit"]["value"] == 0
     assert 0 < res["metrics"]["fit_mfu.fit"]["value"] < 100
     assert {"busy_s", "window_s"} <= set(res["device"])
 

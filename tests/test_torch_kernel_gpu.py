@@ -717,20 +717,173 @@ def test_projection_backward_matches_autograd(cuda, name):
 
 
 def test_render_makes_one_projection_launch_each_way(cuda):
-    """``render(impl="cuda")``: one forward and one backward launch of the
-    projection kernel for all views; ``impl="plain"``: none."""
+    """``render(impl="cuda")`` and ``render_dual(impl="cuda")``: one forward
+    and one backward launch of the projection kernel for all views (both
+    tables of the dual render in the same launches); ``impl="plain"``:
+    none."""
     import splatpu_torch.render.project as project
-    from splatpu_torch.render.api import render
+    from splatpu_torch.render.api import render, render_dual
 
-    args, cams, binning = projection_case("fixture", cuda)
-    for impl, expected in (("cuda", (1, 1)), ("plain", (0, 0))):
-        leaves = {f: getattr(args, f).clone().requires_grad_(True)
-                  for f in ("means3d", "colors", "rotations", "opacities", "scales")}
+    args, cams, binning = projection_case("offset_per_view", cuda)
+    for dual in (False, True):
+        for impl, expected in (("cuda", (1, 1)), ("plain", (0, 0))):
+            leaves = {f: getattr(args, f).clone().requires_grad_(True)
+                      for f in project.GRAD_NAMES}
+            largs = tt.RenderArgs(**leaves)
+            before = (project.LAUNCHES, project.BWD_LAUNCHES)
+            if dual:
+                out, seg = render_dual(largs, leaves["colors"].flip(1), cams, impl=impl,
+                                       config=binning)
+                loss = out.image.square().mean() + seg.image.abs().mean()
+            else:
+                loss = render(largs, cams, impl=impl, config=binning).image.square().mean()
+            loss.backward()
+            torch.cuda.synchronize()
+            assert (project.LAUNCHES - before[0], project.BWD_LAUNCHES - before[1]) == expected
+
+
+@pytest.mark.parametrize("name", PROJECTION_CASES)
+def test_projection_dual_launch_keeps_the_single_launchs_table(cuda, name):
+    """The launch with a second colour set (``render_dual``'s): its table,
+    radius and visibility bitwise the single launch's, its second table the
+    same first seven columns with the second colours.  Its backward of both
+    tables against the plain analytic backward within 2e-5 of each
+    gradient's largest value, column by column, two runs bitwise identical,
+    one launch each way; ``means2d_offset``'s gradient bitwise the single
+    backward's of the first table's cotangent alone."""
+    import splatpu_torch.render.project as project
+
+    args, cams, _ = projection_case(name, cuda)
+    colors_b = args.colors.flip(1).contiguous()
+    before = (project.LAUNCHES, project.BWD_LAUNCHES)
+    single = project.project_views_cuda(args, cams)
+    dual = project.project_views_cuda(args, cams, colors_b)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(single, dual[:3]))
+    assert torch.equal(dual[3][..., :7], dual[0][..., :7])
+    assert torch.equal(dual[3][..., 7:], colors_b.expand(cams.num_views, -1, -1))
+    rng = np.random.default_rng(5)
+    d_table, d_table_b = (torch.tensor(rng.normal(size=x.shape).astype(np.float32), device=cuda)
+                          for x in (dual[0], dual[3]))
+    needs = [getattr(args, f) is not None for f in project.GRAD_NAMES] + [True]
+    got, again = (project.project_views_bwd_cuda(d_table, args, cams, dual[2], needs, d_table_b)
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    assert (project.LAUNCHES - before[0], project.BWD_LAUNCHES - before[1]) == (2, 2)
+    ref = project.project_views_bwd_plain(d_table, args, cams, dual[2], needs, d_table_b)
+    names = (*project.GRAD_NAMES, "colors_b")
+    errs = {f: row_scaled_err(a, b) for f, a, b in zip(names, got, ref) if a is not None}
+    print(f"projection {name}, dual: backward column-scaled errors {errs}")
+    for f, a, b in zip(names, got, again):
+        if a is not None:
+            assert torch.isfinite(a).all() and torch.equal(a, b), f
+            assert errs[f] <= 2e-5, f
+    if args.means2d_offset is not None:
+        alone = project.project_views_bwd_cuda(d_table, args, cams, dual[2], needs[:6])
+        assert torch.equal(got[5], alone[5])
+
+
+def test_projection_dual_backward_moves_no_isotropic_rotation(cuda):
+    """Isotropic Gaussians with identity quaternions (stage 1's initial
+    cloud): the dual backward's rotation gradient exactly zero, as
+    autograd's through the plain path, so Adam takes no step on
+    round-off."""
+    import dataclasses
+
+    import splatpu_torch.render.project as project
+
+    args, cams, _ = projection_case("offset_per_view", cuda)
+    iso = dataclasses.replace(
+        args, rotations=torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=cuda).expand(
+            args.n, 4).contiguous(), scales=args.scales[:, :1].expand(args.n, 3).contiguous())
+    table, _, visible, table_b = project.project_views_cuda(iso, cams, iso.colors.flip(1))
+    rng = np.random.default_rng(13)
+    d_table, d_table_b = (torch.tensor(rng.normal(size=x.shape).astype(np.float32), device=cuda)
+                          for x in (table, table_b))
+    needs = [False, True, True, False, False, False, False]
+    got = project.project_views_bwd_cuda(d_table, iso, cams, visible, needs, d_table_b)
+    assert not bool(got[2].any()) and float(got[1].abs().max()) > 0
+
+
+def test_render_dual_cuda_matches_plain_at_the_fit_shape(cuda):
+    """Stage 1's render at the fit cell's shape (every third Gaussian of
+    config 4's truth in 500,224 slots, one 1280x720 rig view, 32 px tiles at
+    ``max_span`` 32, a (1, N, 2) offset collector; targets rendered from the
+    means moved by N(0, 0.005^2)) under ``impl="cuda"`` (one projection
+    launch each way for both tables, K1/K2, the routing) against
+    ``impl="plain"``: radii, pairs and overflow flags identical, both
+    images within 2e-5, the loss within 1e-5 relative, every gradient
+    within 1e-4 of its largest value, column by column; the densify
+    statistics' visible counts and radii identical, and one mutation at the
+    fit's constants from each run's statistics gives the same integers."""
+    import dataclasses
+    from pathlib import Path
+
+    import splatpu_torch.render.project as project
+    from splatpu_torch.core import prng
+    from splatpu_torch.core.types import activate_cloud, cloud_from_arrays
+    from splatpu_torch.growth.densify import (
+        DensifyConfig,
+        accumulate_stats_batch,
+        densify_and_prune,
+        init_stats,
+    )
+    from splatpu_torch.io.checkpoint import load_cloud
+    from splatpu_torch.render.api import render_dual
+    from splatpu_torch.tools.train_scene import rig_cameras
+    from splatpu_torch.train.losses import SEGMENTATION_WEIGHT, image_losses
+    from splatpu_torch.train.optim import Stage1Adam
+    from splatpu_torch.train.stage1 import split_normals
+
+    root = Path(__file__).resolve().parents[1]
+    truth = load_cloud(root / "runs" / "acceptance_truth" / "truth_n250000.npz", device=cuda)
+    third = {k: v[::3] for k, v in truth.param_dict().items()}
+    cloud = cloud_from_arrays(**third, capacity=500_224, device=cuda)
+    w, h = 1280, 720
+    c = rig_cameras(w, h)[0]
+    cam = tt.Camera(w2c=torch.from_numpy(c[0][None]).to(cuda),
+                    K=torch.from_numpy(c[1][None]).to(cuda), width=w, height=h)
+    binning = BinningConfig(tile=32, max_span=32, span_small=16, max_pairs=2_000_896)
+    jitter = torch.from_numpy(np.random.default_rng(1).normal(
+        0.0, 0.005, tuple(cloud.means.shape)).astype(np.float32)).to(cuda)
+    with torch.no_grad():
+        target, seg_target = (o.image for o in render_dual(
+            activate_cloud(cloud.replace(means=cloud.means + jitter)),
+            cloud.segmentation_masks, cam, impl="plain", config=binning))
+    runs = {}
+    for impl in ("cuda", "plain"):
+        params = {k: p.clone().requires_grad_(True) for k, p in cloud.param_dict().items()}
+        offsets = torch.zeros((1, cloud.capacity, 2), device=cuda, requires_grad=True)
+        c = cloud.replace(**params)
+        args = dataclasses.replace(activate_cloud(c), means2d_offset=offsets)
         before = (project.LAUNCHES, project.BWD_LAUNCHES)
-        out = render(tt.RenderArgs(**leaves), cams, impl=impl, config=binning)
-        out.image.square().mean().backward()
+        out, seg = render_dual(args, c.segmentation_masks, cam, impl=impl, config=binning)
+        total = (image_losses(out.image, target)
+                 + SEGMENTATION_WEIGHT * image_losses(seg.image, seg_target)).mean()
+        grads = torch.autograd.grad(total, [*params.values(), offsets])
         torch.cuda.synchronize()
-        assert (project.LAUNCHES - before[0], project.BWD_LAUNCHES - before[1]) == expected
+        launches = (project.LAUNCHES - before[0], project.BWD_LAUNCHES - before[1])
+        assert launches == ((1, 1) if impl == "cuda" else (0, 0)), launches
+        stats = accumulate_stats_batch(init_stats(cloud.capacity, cuda), grads[-1],
+                                       out.radii.detach())
+        _, _, _, info = densify_and_prune(
+            cloud, Stage1Adam(cloud.param_dict()), stats,
+            split_normals(prng.key(5), cloud.capacity, cuda), 500, 4.4, DensifyConfig())
+        runs[impl] = out, seg, float(total.detach()), dict(zip([*params, "offsets"], grads)), stats, {
+            k: int(v) for k, v in info.items()}
+    (a, sa, loss, ga, st_a, mut_a), (b, sb, ref_loss, gb, st_b, mut_b) = runs["cuda"], runs["plain"]
+    for x, y in ((a, b), (sa, sb)):
+        for f in ("radii", "total_pairs", "overflowed", "span_overflowed"):
+            assert torch.equal(getattr(x, f), getattr(y, f)), f
+        assert float((x.image - y.image).abs().max()) <= 2e-5
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    errs = {k: row_scaled_err(g, gb[k]) for k, g in ga.items()}
+    print(f"render_dual at the fit's shape: loss {loss} / {ref_loss}; gradient errors {errs};"
+          f" mutation {mut_a} / {mut_b}")
+    assert max(errs.values()) <= 1e-4, errs
+    assert torch.equal(st_a.vis_count, st_b.vis_count)
+    assert torch.equal(st_a.max_radii, st_b.max_radii)
+    assert mut_a == mut_b and mut_a["cloned"] + mut_a["split"] > 0, (mut_a, mut_b)
 
 
 def test_stage2_step_cuda_matches_plain_within_benchmark_limits(cuda):

@@ -10,9 +10,18 @@ on the CPU, through its plain version:
   a FOV size other than the image's, the frustum clamp active and exactly
   at its bounds, det <= 0, tz at 0 and at the 0.2 near cull, culled and
   zero-opacity splats, and gradients asked of a subset of the inputs;
+- with a second colour set (``render_dual``'s two tables) the plain forward
+  packs both tables of one preprocess, and the plain backward matches
+  autograd through ``preprocess``, both table packs and the offset's
+  lineage cut: ``means2d_offset`` takes the first table's cotangent alone,
+  ``colors_b`` the second's colour columns; the whole dual route in plain
+  form (one projection, ``bin_projected``, two composites of the given
+  tables) is ``render_dual(impl="plain")``'s images, radii, flags and
+  gradients;
 - the CUDA wrappers take CUDA tensors or raise: nothing falls back;
 - the views the kernel projects are counted while a profiler records, and
-  the benchmark's ``projection_kernel_share`` reads them.
+  the benchmark's ``projection_kernel_share`` and ``fit_projection_share``
+  read them.
 
 The kernel itself runs on a card only: tests/test_torch_kernel_gpu.py.
 """
@@ -28,9 +37,11 @@ import pytest
 import torch
 
 import splatpu_torch.core.types as tt
+from splatpu_torch.core.projection import offset_pixel_scale, preprocess
 from splatpu_torch.obs import profiling
 from splatpu_torch.render import exact, project
 from splatpu_torch.render.binning import BinningConfig
+from splatpu_torch.render.composite import pack_table
 from splatpu_torch.tools.measure import row_scaled_err
 from _np_scenes import np_cloud, np_lookat
 
@@ -166,6 +177,157 @@ def test_plain_backward_matches_autograd(name, dtype):
         assert row_scaled_err(got[f], r) <= BWD_TOL[dtype], f
 
 
+def seg_colors(n: int, dtype=torch.float32, seed: int = 17) -> torch.Tensor:
+    """A second colour set (N, 3), as stage 1's segmentation colours."""
+    return torch.tensor(np.random.default_rng(seed).uniform(0, 1, (n, 3)), dtype=dtype)
+
+
+def dual_tables(args: tt.RenderArgs, cam: tt.Camera, colors_b):
+    """``render_dual``'s two tables as its plain path builds them: one
+    ``preprocess`` per view, the first table packed with ``args.colors``,
+    the second with ``colors_b`` and the pixel positions of the offset's
+    lineage cut, ``mean2d + (off.detach() - off) * wh``."""
+    wh = offset_pixel_scale(cam)
+    off = args.means2d_offset
+    op = args.opacities[:, 0]
+    tables, tables_b = [], []
+    for i in range(cam.num_views):
+        sp = preprocess(args.for_view(i), cam.view(i))
+        g_opacity = torch.where(sp.visible, op, torch.zeros_like(op))
+        mean2d_b = sp.mean2d
+        if off is not None:
+            o = off if off.dim() == 2 else off[i]
+            mean2d_b = sp.mean2d + (o.detach() - o) * wh
+        tables.append(pack_table(sp.mean2d, sp.conic, g_opacity, sp.depth, args.colors))
+        tables_b.append(pack_table(mean2d_b, sp.conic, g_opacity, sp.depth, colors_b))
+    return torch.stack(tables), torch.stack(tables_b)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_plain_dual_forward_packs_both_tables_of_one_preprocess(name):
+    """With ``colors_b`` the plain forward's first three outputs are the
+    single table's bit for bit, and the second table is the dual render's
+    (the lineage cut moves no value)."""
+    args, cam = case(name)
+    colors_b = seg_colors(args.n)
+    table, radius, visible, table_b = project.project_views_plain(args, cam, colors_b)
+    single = project.project_views_plain(args, cam)
+    assert all(torch.equal(a, b) for a, b in zip((table, radius, visible), single))
+    ref, ref_b = dual_tables(args, cam, colors_b)
+    assert torch.equal(table, ref) and torch.equal(table_b, ref_b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("name", CASES)
+def test_plain_dual_backward_matches_autograd(name, dtype):
+    """The plain backward of both tables against autograd through
+    ``preprocess``, both table packs and the lineage cut: every leaf within
+    the tolerance of the single table's backward; ``means2d_offset``'s
+    gradient the first table's alone (bitwise the single backward's of
+    d(table)), ``colors_b``'s the second table's colour columns summed over
+    the views."""
+    args, cam = case(name, dtype)
+    colors_b = seg_colors(args.n, dtype)
+    names = [f for f in project.GRAD_NAMES if getattr(args, f) is not None]
+    leaves = {f: getattr(args, f).clone().requires_grad_(True) for f in names}
+    leaves_b = colors_b.clone().requires_grad_(True)
+    table, table_b = dual_tables(tt.RenderArgs(**leaves), cam, leaves_b)
+    rng = np.random.default_rng(11)
+    d_table = torch.tensor(rng.normal(size=table.shape), dtype=dtype)
+    d_table_b = torch.tensor(rng.normal(size=table_b.shape), dtype=dtype)
+    ref = torch.autograd.grad((table * d_table).sum() + (table_b * d_table_b).sum(),
+                              [*leaves.values(), leaves_b])
+    visible = project.project_views_plain(args, cam)[2]
+    needs = [f in leaves for f in project.GRAD_NAMES] + [True]
+    got = project.project_views_bwd_plain(d_table, args, cam, visible, needs, d_table_b)
+    got = dict(zip((*project.GRAD_NAMES, "colors_b"), got))
+    for f, r in zip([*leaves, "colors_b"], ref):
+        assert got[f].dtype == dtype and got[f].shape == r.shape, f
+        assert torch.isfinite(got[f]).all(), f
+        assert float(r.abs().max()) > 0, f
+        assert row_scaled_err(got[f], r) <= BWD_TOL[dtype], f
+    assert torch.equal(got["colors_b"], d_table_b[..., 7:].sum(0))
+    single = dict(zip(project.GRAD_NAMES, project.project_views_bwd_plain(
+        d_table, args, cam, visible, needs[:6])))
+    if args.means2d_offset is not None:
+        assert torch.equal(got["means2d_offset"], single["means2d_offset"])
+    assert not torch.equal(got["means3d"], single["means3d"])
+
+
+@pytest.mark.parametrize("name", ["plain", "offset_per_view", "strip"])
+def test_plain_dual_backward_moves_no_isotropic_rotation(name):
+    """Stage 1 starts from isotropic Gaussians with identity quaternions,
+    whose rotation changes no render: autograd's rotation gradient is
+    exactly zero there, and so is the dual backward's (its d(cov3d) summed
+    symmetrically), so Adam takes no step on round-off."""
+    args, cam = case(name)
+    iso = dataclasses.replace(
+        args, rotations=torch.tensor([[1.0, 0.0, 0.0, 0.0]]).expand(args.n, 4).contiguous(),
+        scales=args.scales[:, :1].expand(args.n, 3).contiguous())
+    leaves = {f: getattr(iso, f).clone().requires_grad_(True) for f in ("scales", "rotations")}
+    table, table_b = dual_tables(dataclasses.replace(iso, **leaves), cam, seg_colors(args.n))
+    rng = np.random.default_rng(13)
+    d_table, d_table_b = (torch.tensor(rng.normal(size=x.shape), dtype=torch.float32)
+                          for x in (table, table_b))
+    ref = torch.autograd.grad((table * d_table).sum() + (table_b * d_table_b).sum(),
+                              leaves["rotations"])[0]
+    visible = project.project_views_plain(iso, cam)[2]
+    needs = [False, True, True, False, False, False, False]
+    got = project.project_views_bwd_plain(d_table, iso, cam, visible, needs, d_table_b)
+    assert not bool(ref.any()) and not bool(got[2].any())
+    assert float(got[1].abs().max()) > 0
+
+
+# The whole dual route; the edge rows' needles (det <= 0 in float32) make
+# the two float32 composites' gradient sums disagree at any ordering, the
+# single render's too, so their branches are held at the table above.
+ROUTE_CASES = [c for c in CASES if c != "edges"]
+
+
+@pytest.mark.parametrize("name", ROUTE_CASES)
+def test_dual_route_in_plain_form_is_render_dual(name):
+    """One ``project_views(impl="plain")`` with ``colors_b``, ``bin_projected``
+    and two ``composite_streams`` of the given tables (what
+    ``render_dual(impl="cuda")`` runs, with the kernels' plain versions)
+    against ``render_dual(impl="plain")``: both images, radii and overflow
+    flags identical; every leaf's gradient, ``means2d_offset``'s and
+    ``colors_b``'s included, within the float32 tolerance of the analytic
+    backward."""
+    from splatpu_torch.render.api import render_dual
+
+    args, cam = case(name)
+    colors_b = seg_colors(args.n)
+    names = [f for f in project.GRAD_NAMES if getattr(args, f) is not None]
+    bg = exact.background(None, 3, "cpu")
+    runs = {}
+    for route in ("projected", "render_dual"):
+        leaves = {f: getattr(args, f).clone().requires_grad_(True) for f in names}
+        leaves_b = colors_b.clone().requires_grad_(True)
+        largs = tt.RenderArgs(**leaves)
+        if route == "projected":
+            table, radius, visible, table_b = project.project_views(largs, cam, impl="plain",
+                                                                    colors_b=leaves_b)
+            streams = exact.bin_projected(largs, cam, BINNING, table, radius, visible)
+            outs = (exact.composite_streams(streams, cam, BINNING, bg, largs.colors, "plain",
+                                            table=table),
+                    exact.composite_streams(streams, cam, BINNING, bg, leaves_b, "plain",
+                                            table=table_b))
+        else:
+            outs = render_dual(largs, leaves_b, cam, impl="plain", config=BINNING)
+        a, b = outs
+        loss = (a.image.square().sum() + 0.5 * b.image.abs().sum() + a.depth.mean()
+                + 0.3 * b.depth.mean())
+        grads = torch.autograd.grad(loss, [*leaves.values(), leaves_b])
+        runs[route] = outs, dict(zip([*names, "colors_b"], grads))
+    (got, g_got), (ref, g_ref) = runs["projected"], runs["render_dual"]
+    for x, y in zip(got, ref):
+        for f in ("image", "depth", "radii", "overflowed", "span_overflowed", "total_pairs"):
+            assert torch.equal(getattr(x, f), getattr(y, f)), f
+    for f in g_ref:
+        assert float(g_ref[f].abs().max()) > 0, f
+        assert row_scaled_err(g_got[f], g_ref[f]) <= BWD_TOL[torch.float32], f
+
+
 @pytest.mark.parametrize("wanted", [("means3d",), ("scales", "rotations"), ("opacities", "colors"),
                                     ("means2d_offset",)])
 def test_node_computes_only_the_gradients_asked_for(wanted):
@@ -199,9 +361,10 @@ def test_node_computes_only_the_gradients_asked_for(wanted):
 
 
 def test_cuda_path_raises_on_cpu_tensors():
-    """No fallback: the kernels' wrappers and ``render(impl="cuda")`` refuse
+    """No fallback: the kernels' wrappers (with and without a second colour
+    set), ``render(impl="cuda")`` and ``render_dual(impl="cuda")`` refuse
     CPU tensors."""
-    from splatpu_torch.render.api import render
+    from splatpu_torch.render.api import render, render_dual
 
     args, cam = case("plain")
     with pytest.raises(ValueError, match="CUDA tensors only"):
@@ -211,6 +374,13 @@ def test_cuda_path_raises_on_cpu_tensors():
         project.project_views_bwd_cuda(table, args, cam, visible, [True] * 6)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         render(args, cam, impl="cuda", config=BINNING)
+    colors_b = seg_colors(args.n)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        project.project_views_cuda(args, cam, colors_b)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        project.project_views_bwd_cuda(table, args, cam, visible, [True] * 7, table)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        render_dual(args, colors_b, cam, impl="cuda", config=BINNING)
     cam_grad = dataclasses.replace(cam, w2c=cam.w2c.clone().requires_grad_(True))
     with pytest.raises(ValueError, match="no gradient of the camera"):
         project.project_views(args, cam_grad, impl="plain")
@@ -221,16 +391,22 @@ def test_render_cuda_projects_once_and_bins_its_slices(monkeypatch):
     ``ProjectViews`` call (the kernels swapped here for counting plain
     versions), bins slices of its outputs and composites its table: the
     plain render's image bitwise, its gradients within the float32
-    tolerance of the analytic backward."""
-    from splatpu_torch.render.api import render
+    tolerance of the analytic backward.  ``render_dual(impl="cuda")`` makes
+    one projection forward (both tables) and one backward per call, and
+    matches ``render_dual(impl="plain")`` the same way."""
+    from splatpu_torch.render.api import render, render_dual
 
-    calls = []
+    calls, bwd_calls = [], []
 
-    def fwd(args, camera):
+    def fwd(args, camera, *colors_b):
         calls.append(camera.num_views)
-        return project.project_views_plain(args, camera)
+        return project.project_views_plain(args, camera, *colors_b)
 
-    monkeypatch.setitem(project.KERNELS, "cuda", (fwd, project.project_views_bwd_plain))
+    def bwd(*a):
+        bwd_calls.append(len(a))
+        return project.project_views_bwd_plain(*a)
+
+    monkeypatch.setitem(project.KERNELS, "cuda", (fwd, bwd))
     monkeypatch.setitem(exact.KERNELS, ("cuda", "grid"), exact.KERNELS[("plain", "grid")])
     args, cam = case("plain")
     outs = {}
@@ -240,9 +416,27 @@ def test_render_cuda_projects_once_and_bins_its_slices(monkeypatch):
         out = render(tt.RenderArgs(**leaves), cam, impl=impl, config=BINNING)
         (out.image.square().sum() + out.depth.mean()).backward()
         outs[impl] = out, {f: x.grad for f, x in leaves.items()}
-    assert calls == [cam.num_views]
+    assert calls == [cam.num_views] and bwd_calls == [5]
     (a, ga), (b, gb) = outs["cuda"], outs["plain"]
     assert torch.equal(a.image, b.image) and torch.equal(a.radii, b.radii)
+    for f in ga:
+        assert row_scaled_err(ga[f], gb[f]) <= BWD_TOL[torch.float32], f
+
+    args, cam = case("offset_per_view")
+    colors_b = seg_colors(args.n)
+    calls.clear()
+    bwd_calls.clear()
+    for impl in ("cuda", "plain"):
+        leaves = {f: getattr(args, f).clone().requires_grad_(True) for f in project.GRAD_NAMES}
+        leaves["colors_b"] = colors_b.clone().requires_grad_(True)
+        largs = tt.RenderArgs(**{f: leaves[f] for f in project.GRAD_NAMES})
+        out, seg = render_dual(largs, leaves["colors_b"], cam, impl=impl, config=BINNING)
+        (out.image.square().sum() + seg.image.abs().sum() + out.depth.mean()).backward()
+        outs[impl] = (out, seg), {f: x.grad for f, x in leaves.items()}
+    assert calls == [cam.num_views] and bwd_calls == [6]
+    (a, ga), (b, gb) = outs["cuda"], outs["plain"]
+    for x, y in zip(a, b):
+        assert torch.equal(x.image, y.image) and torch.equal(x.radii, y.radii)
     for f in ga:
         assert row_scaled_err(ga[f], gb[f]) <= BWD_TOL[torch.float32], f
 
@@ -283,3 +477,26 @@ def test_projection_kernel_share_reads_the_counts(counts, share, monkeypatch):
     reading = {}
     assert mod.read(reading, "train") == share
     assert reading["binning_counts"] == counts
+
+
+@pytest.mark.parametrize("counts,share", [
+    ({"views": 12, "views_projected": 12, "pairs": 3, "wide_pairs": 0}, 100.0),
+    ({"views": 12, "views_projected": 0, "pairs": 3, "wide_pairs": 0}, 0.0),
+    ({"views": 12, "pairs": 3, "wide_pairs": 0}, None),
+    ({}, None),
+])
+def test_fit_projection_share_reads_the_counts(counts, share):
+    """The fit's reader: views projected by the kernel over the views
+    binned, from the counts the fit driver took once (``take_counts``, in
+    the reading's ``work``); None where the program keeps no such count,
+    nothing was binned, or the run was not traced."""
+    sys.path.insert(0, str(ROOT))
+    from splatbench import harness
+
+    mod = harness.load_module(ROOT / "splatbench" / "metrics" / "fit_projection_share.py",
+                              "splatbench_metric_fit_projection_share")
+    reading = {"trace": {}, "units": 20, "e2e": {"train_step_ms": 40.0},
+               "work": {"counts": dict(counts)}}
+    assert mod.read(reading, "fit") == share
+    assert mod.read(dict(reading, work={"counts": {}}), "fit") is None
+    assert mod.read({k: v for k, v in reading.items() if k != "trace"}, "fit") is None
