@@ -2,7 +2,7 @@
 """Benchmark of the PyTorch port: the differentiable renderer's forward +
 backward ms per frame, ``bench.py``'s workload on an NVIDIA GPU.
 
-    python3 bench_torch.py [--chained N] [--profile N] [--device cpu]
+    python3 bench_torch.py [--chained N] [--device cpu]
 
 One forward and backward of ``render(impl="pallas")`` (on a card: exact
 binning, the forward composite K1, the backward composite K2 and the
@@ -27,8 +27,6 @@ budget and whether the kernels came from the persistent cache
 line ``bench.py``'s JSON object (the same keys, ``vs_baseline`` against the
 same nominal 10 ms).  ``--chained N`` adds a
 second JSON line for chains of N frames, as ``bench.py`` does.
-``--profile N`` first prints the card's busy share and its kernels over N
-calls under ``torch.profiler``.
 
 ``--device cpu`` runs ``bench.py``'s size off the TPU (2,000 Gaussians at
 256x256) through the plain PyTorch versions of the kernels.  Without a card
@@ -93,40 +91,13 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def busy_share(fn, calls: int) -> None:
-    """Print the card's busy share of ``calls`` calls of ``fn`` under
-    ``torch.profiler`` and the kernels that take most of it."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-    wall_ms = start.elapsed_time(end) / calls
-    kernels = [ev for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3 / calls
-    print(f"profiled {calls} calls: {wall_ms:.3f} ms per call (CUDA events), card busy"
-          f" {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%; idle"
-          f" {100 - 100 * busy_ms / wall_ms:.1f}%)", flush=True)
-    for ev in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"  {ev.self_device_time_total / 1e3 / calls:8.3f} ms per call"
-              f" x{ev.count / calls:6.1f}  {ev.key[:90]}", flush=True)
-
-
-def main(chained: int = 0, device=None, profile: int = 0) -> dict:
+def main(chained: int = 0, device=None) -> dict:
     """Run the bench on ``device`` (the card unless given) and print its
     lines; returns the headline numbers and the run's launches."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("bench_torch: no CUDA device (torch.cuda.is_available() is false);"
                          " pass --device cpu for bench.py's CPU size")
-    if profile and device.type != "cuda":
-        raise SystemExit("bench_torch: --profile reads the card's busy share; it needs the card")
     if device.type == "cuda":
         enable_compilation_cache()
     before = launch_counts()
@@ -155,8 +126,6 @@ def main(chained: int = 0, device=None, profile: int = 0) -> dict:
     overflowed, pairs = bool(out.overflowed.any()), int(out.total_pairs.max())
     first_s = time.perf_counter() - t0
     del out
-    if profile:
-        busy_share(lambda: fwd_bwd(params), profile)
     stats = time_fn(fwd_bwd, warmup=WARMUP, iters=ITERS, args_fn=shifted, device=device)
     ms = stats["mean_ms"]
     def chain_ms(n):
@@ -202,7 +171,6 @@ def main(chained: int = 0, device=None, profile: int = 0) -> dict:
 if __name__ == "__main__":
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--chained", type=int, nargs="?", const=8, default=0)
-    p.add_argument("--profile", type=int, default=0)
     p.add_argument("--device", default=None)
     a = p.parse_args()
-    main(chained=a.chained, device=a.device, profile=a.profile)
+    main(chained=a.chained, device=a.device)

@@ -7,9 +7,9 @@ five 1280x720 orbit views) by calling ``run_inference`` itself under
 ``torch.profiler``, after a 2-timestep warm-up rollout, so the loop that is
 profiled is the loop that is served.  Prints the wall time per timestep,
 the host time of each stage (the ``rollout``, ``render``, ``flags`` and
-``frames`` ranges that ``run_inference`` marks), the device time by kernel,
-and the device's busy and idle share of the window.  Per-timestep figures
-divide by the rollout's timesteps plus the t=0 frame.
+``frames`` ranges that ``run_inference`` marks) and the device time by
+kernel.  Per-timestep figures divide by the rollout's timesteps plus the
+t=0 frame.
 """
 
 from __future__ import annotations
@@ -66,9 +66,6 @@ def main(argv=None) -> int:
     # Device work only: the stage ranges also appear on the device timeline
     # and would count their kernels twice.
     kernels = [ev for ev in events if ev.device_type == cuda and ev.key not in STAGES]
-    dev_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
-    print(f"device busy {dev_ms / steps:.3f} ms/timestep "
-          f"({100 * dev_ms / wall_ms:.1f}% of wall; idle {100 - 100 * dev_ms / wall_ms:.1f}%)")
     for ev in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {ev.self_device_time_total / 1e3 / steps:8.3f} ms/timestep"
               f" x{ev.count / steps:7.1f}  {ev.key[:90]}")

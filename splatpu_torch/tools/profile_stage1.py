@@ -9,9 +9,9 @@ capacity factor 6.0) by calling ``fit`` itself under ``torch.profiler``,
 after a warm-up fit of a few iterations.  No mutation falls in the window
 (the first is at 500).  Prints the iterations' wall time, the host time of
 each stage (the ``render``, ``loss``, ``backward`` and ``adam`` ranges),
-the device time by kernel inside the iterations, and the device's busy and
-idle share of the window from the first iteration's start to the end of
-the last one's device work.  Set-up (kNN, staging) is outside the window.
+and the device time by kernel inside the window from the first
+iteration's start to the end of the last one's device work.  Set-up (kNN,
+staging) is outside the window.
 """
 
 from __future__ import annotations
@@ -73,7 +73,6 @@ def main(argv=None) -> int:
             last_end = max(last_end, e.time_range.end)
     n = args.iterations
     window_ms = (last_end - its[0][0]) / 1e3
-    dev_ms = sum(t for t, _ in kernels.values()) / 1e3
     host_ms = sum(b - a for a, b in its) / 1e3
     print(f"card: {torch.cuda.get_device_name(0)}; config 2, {args.views_per_step} view(s) per"
           f" iteration, {n} iterations")
@@ -83,8 +82,6 @@ def main(argv=None) -> int:
         if ev.key in STAGES and ev.device_type != cuda:
             print(f"  host {ev.key:9s} {ev.cpu_time_total / 1e3 / n:9.3f} ms/iteration"
                   f" ({ev.count} calls)")
-    print(f"device busy {dev_ms / n:.3f} ms/iteration ({100 * dev_ms / window_ms:.1f}% of the"
-          f" window; idle {100 - 100 * dev_ms / window_ms:.1f}%)")
     for name, (tot, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:18]:
         print(f"  {tot / 1e3 / n:8.3f} ms/iteration x{count / n:7.1f}  {name[:90]}")
     return 0

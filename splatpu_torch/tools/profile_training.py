@@ -9,10 +9,10 @@ the cloud moved as in the config-3 run, ``splatpu_torch.tools.train_scene``)
 by calling ``train`` itself under ``torch.profiler``, after a one-timestep
 warm-up run.  Prints the steps' wall time (CUDA events), the host time of
 each stage (the ``deform``, ``render``, ``loss``, ``backward``, ``adam`` and
-``snapshot`` ranges of the step), the device time by kernel inside the
-steps, and the device's busy and idle share of the steps' window (each
-``train_step`` range, which ends when the step is enqueued: a kernel that
-starts after its step's range has ended is not counted).  Setup (kNN graph,
+``snapshot`` ranges of the step) and the device time by kernel inside the
+steps' windows (each ``train_step`` range, which ends when the step is
+enqueued: a kernel that starts after its step's range has ended is not
+counted).  Setup (kNN graph,
 encodings, staging) is outside those windows.  ``--path`` picks the render path: K1/K2 (``grid``, the default),
 K4 (``manual``, through ``binning_overrides``) or K5 (``padded``:
 ``renderer="cuda_padded"`` with a budget measured at 16 px tiles over the
@@ -108,7 +108,6 @@ def main(argv=None) -> int:
         if e.device_type == cuda and e.name not in STAGES + (STEP,) and in_steps(e.time_range.start):
             tot, n = kernels.get(e.name, (0.0, 0))
             kernels[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
-    dev_ms = sum(t for t, _ in kernels.values()) / 1e3
     window_ms = sum(b - a for a, b in windows) / 1e3
     print(f"card: {torch.cuda.get_device_name(0)}; path {args.path}")
     print(f"steps {steps}: wall per step (CUDA events) {wall_ms / steps:.3f} ms;"
@@ -117,8 +116,6 @@ def main(argv=None) -> int:
         if ev.key in STAGES and ev.device_type != cuda:
             print(f"  host {ev.key:9s} {ev.cpu_time_total / 1e3 / steps:9.3f} ms/step"
                   f" ({ev.count} calls)")
-    print(f"device busy {dev_ms / steps:.3f} ms/step ({100 * dev_ms / window_ms:.1f}% of the"
-          f" step windows; idle {100 - 100 * dev_ms / window_ms:.1f}%)")
     for name, (tot, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:18]:
         print(f"  {tot / 1e3 / steps:8.3f} ms/step x{n / steps:7.1f}  {name[:90]}")
     return 0

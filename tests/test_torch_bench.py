@@ -12,8 +12,6 @@
   second line with the keys of its chained line;
 - no card and no ``--device cpu``: ``main`` and the script exit non-zero;
 - ``obs.profiling.time_fn``'s ``args_fn`` gets every call's index;
-- ``tools.compare_timers`` runs the other tree's ``time_fn`` and this
-  tree's in turns and reports both;
 - ``io.video.write_video`` without imageio: the GIF imageio writes, byte
   for byte, its frames, duration and loop.
 """
@@ -41,7 +39,6 @@ from splatpu.render.api import default_config as jax_default_config
 from splatpu.render.api import render as jax_render
 from splatpu_torch.io import video
 from splatpu_torch.obs import profiling
-from splatpu_torch.tools import compare_timers
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -126,8 +123,6 @@ def test_no_card_is_an_error(monkeypatch):
     with pytest.raises(SystemExit) as exc:
         bench_torch.main()
     assert exc.value.code not in (0, None) and "CUDA" in str(exc.value.code)
-    with pytest.raises(SystemExit, match="needs the card"):
-        bench_torch.main(device="cpu", profile=1)
     # The script itself, where this machine has no card.
     if not torch.cuda.is_available():
         run = subprocess.run([sys.executable, str(ROOT / "bench_torch.py")], cwd=ROOT,
@@ -148,34 +143,6 @@ def test_time_fn_passes_each_call_its_index():
     assert asked == list(range(-3, 5))
     assert called == [(i, 10 * i) for i in range(-3, 5)]
     assert stats["iters"] == 5 and stats["timer"] == "host_clock"
-
-
-def test_compare_timers_runs_both_timers_in_turns(monkeypatch, capsys, tmp_path):
-    """``tools.compare_timers`` at a cut size, the other tree's ``time_fn``
-    this tree's with its timer renamed, so that the two can be told apart."""
-    for name, value in (("CPU_GAUSSIANS", 100), ("CPU_SIZE", (64, 64)), ("WARMUP", 1),
-                        ("ITERS", 2)):
-        monkeypatch.setattr(bench_torch, name, value)
-    other = tmp_path / "other"
-    (other / "splatpu_torch" / "obs").mkdir(parents=True)
-    source = (ROOT / "splatpu_torch" / "obs" / "profiling.py").read_text()
-    assert '"timer": "host_clock"' in source
-    (other / "splatpu_torch" / "obs" / "profiling.py").write_text(
-        source.replace('"timer": "host_clock"', '"timer": "other_clock"'))
-    summary = compare_timers.main([str(other), "--device", "cpu"])
-    lines = capsys.readouterr().out.strip().splitlines()
-    runs = len(compare_timers.ORDER) * compare_timers.ROUNDS
-    assert ([line.split(":")[0].strip() for line in lines[:runs]]
-            == list(compare_timers.ORDER) * compare_timers.ROUNDS)
-    assert lines[runs] == "device: cpu (plain versions)"
-    assert json.loads(lines[-1]) == summary
-    assert summary["other"]["timer"] == "other_clock" and summary["this"]["timer"] == "host_clock"
-    for name in ("other", "this"):
-        assert len(summary[name]["means_ms"]) == runs // 2 and summary[name]["mean_ms"] > 0
-    assert summary["this_minus_other_ms"] == pytest.approx(
-        summary["this"]["mean_ms"] - summary["other"]["mean_ms"])
-    assert summary["largest_spread_ms"] == max(summary["this"]["spreads_ms"]
-                                               + summary["other"]["spreads_ms"])
 
 
 @pytest.mark.parametrize("fps", [30, 8])

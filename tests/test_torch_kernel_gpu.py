@@ -5,7 +5,11 @@ of 8 from 8 to 64 px with ``last`` identical, the backward body at the same
 tiles, 1 to 9 channels and image sizes that cut the last tiles (100x70,
 scaled with the tile above 32 px); the routing in
 both slot modes, 8 to 16 rows, slot runs up to 512, dropped and clipped
-slots; each bitwise identical across two launches.
+slots; each bitwise identical across two launches.  At the training
+shapes (config 3's fitted cloud under 5 rig views at 1280x720, ``CLOUD100K``):
+K1, K2, the routing in both slot modes and the ``CompositeTable`` backward;
+K4 on a gid of 2^24 + 2^20 slots; the projection kernel at both training
+cells' clouds and at the fit's shape.
 
 Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere.  Imports nothing of
 JAX, so it runs on a machine without it:
@@ -28,6 +32,10 @@ from splatpu_torch.render.exact import composite_inputs
 from splatpu_torch.tools.measure import row_scaled_err
 
 pytestmark = pytest.mark.gpu
+
+ROOT = Path(__file__).resolve().parents[1]
+CLOUD100K = "cloud100k"  # config 3's fitted cloud at the training shapes (``training_scene``)
+TOL = (2e-5, 2e-4, 2e-5)  # image, depth, final T of every forward against its plain version
 
 
 @pytest.fixture
@@ -65,13 +73,93 @@ def scene(seed, n, views, width, height, channels, device):
     return args, tt.stack_cameras(cams)
 
 
+def rig_camera(views, device):
+    """The first ``views`` rig cameras at 1280x720, as one camera."""
+    from splatpu_torch.tools.train_scene import rig_cameras
+
+    cams = rig_cameras(1280, 720)[:views]
+    return tt.Camera(w2c=torch.from_numpy(np.stack([c[0] for c in cams])).to(device),
+                     K=torch.from_numpy(np.stack([c[1] for c in cams])).to(device), width=1280,
+                     height=720)
+
+
+def training_scene(device):
+    """Config 3's fitted cloud (``runs/s1_ceiling_r4b``, its 100,585 alive
+    Gaussians) under the first 5 rig cameras at 1280x720, as stage 2
+    trains it: (RenderArgs, camera)."""
+    from splatpu_torch.io.checkpoint import load_cloud
+    from splatpu_torch.train.stage2 import compact_cloud
+
+    cloud = compact_cloud(load_cloud(ROOT / "runs" / "s1_ceiling_r4b" / "densified_cloud.npz",
+                                     device=device))
+    assert cloud.capacity == 100_585
+    return tt.activate_cloud(cloud), rig_camera(5, device)
+
+
+def seeded_colors(args, channels, rng):
+    """``args`` with ``channels`` colours drawn uniformly from ``rng``."""
+    colors = torch.tensor(np.asarray(rng.uniform(0, 1, (args.n, channels)), np.float32),
+                          device=args.colors.device)
+    return tt.RenderArgs(args.means3d, colors, args.rotations, args.opacities, args.scales)
+
+
+def loss_cotangents(image, depth, tfin):
+    """The cotangents of 0.8 L1 + 0.2 (1 - SSIM) against the image shifted
+    by (3, 5) px, + 0.1 mean depth + 0.05 mean T."""
+    from splatpu_torch.core.ssim import ssim
+
+    leaves = [x.detach().clone().requires_grad_(True) for x in (image, depth, tfin)]
+    target = torch.roll(image, shifts=(3, 5), dims=(2, 3))
+    loss = (0.8 * (leaves[0] - target).abs().mean() + 0.2 * (1.0 - ssim(leaves[0], target))
+            + 0.1 * leaves[1].mean() + 0.05 * leaves[2].mean())
+    return tuple(g.contiguous() for g in torch.autograd.grad(loss, leaves))
+
+
+def table_scene(seed, n, views, width, height, tile, channels, device):
+    """(RenderArgs, camera, binning): ``scene`` at a fixed budget, or for
+    ``n == CLOUD100K`` ``training_scene`` at its demand budget."""
+    from splatpu_torch.render.api import demand_binning, measure_binning_demand
+
+    if n == CLOUD100K:
+        args, cams = training_scene(device)
+        return args, cams, demand_binning(*measure_binning_demand(args, cams, tile=tile), tile=tile)
+    args, cams = scene(seed, n, views, width, height, channels, device)
+    return args, cams, BinningConfig(tile=tile, max_span=256, max_pairs=1 << 18, chunk_pairs=256)
+
+
+def check_forward(got, ref):
+    """Image, depth and final T within ``TOL``, ``last`` identical."""
+    for a, b, tol in zip(got[:3], ref[:3], TOL):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= tol
+    assert torch.equal(got[3], ref[3])
+
+
+def check_table_backward(kin, geo, streams, cot, kernel):
+    """The ``CompositeTable`` backward (forward, backward composite,
+    routing) under ``("cuda", kernel)`` against ``("plain", kernel)`` on
+    d(table), 1e-4 scaled per row."""
+    from splatpu_torch.render.exact import CompositeTable
+
+    stack = lambda f: torch.stack([getattr(s, f) for s in streams])  # noqa: E731
+    d_table = {}
+    for impl in ("cuda", "plain"):
+        table = kin[0].detach().clone().requires_grad_(True)
+        outs = CompositeTable.apply(table, kin[4], *kin[1:4], stack("offsets"), stack("counts"),
+                                    stack("lane"), geo, (impl, kernel))
+        torch.autograd.backward(outs[:3], cot)
+        d_table[impl] = table.grad
+    assert torch.isfinite(d_table["cuda"]).all() and bool((d_table["cuda"] != 0).any())
+    assert row_scaled_err(d_table["cuda"], d_table["plain"]) <= 1e-4
+
+
 @pytest.mark.parametrize(
     "n,views,width,height,tile,channels",
-    [(300, 1, 48, 32, 16, 3), (3000, 3, 100, 70, 32, 3), (1500, 2, 64, 64, 32, 1)],
+    [(300, 1, 48, 32, 16, 3), (3000, 3, 100, 70, 32, 3), (1500, 2, 64, 64, 32, 1),
+     pytest.param(CLOUD100K, 5, 1280, 720, 32, 3, id=CLOUD100K)],
 )
 def test_kernel_matches_plain(cuda, n, views, width, height, tile, channels):
-    args, cams = scene(n, n, views, width, height, channels, cuda)
-    cfg = BinningConfig(tile=tile, max_span=256, max_pairs=1 << 18, chunk_pairs=256)
+    args, cams, cfg = table_scene(n, n, views, width, height, tile, channels, cuda)
     _, k = composite_inputs(args, cams, cfg)
     bg = torch.linspace(0.1, 0.3, channels, device=cuda)
     before = composite.LAUNCHES
@@ -80,10 +168,7 @@ def test_kernel_matches_plain(cuda, n, views, width, height, tile, channels):
     assert composite.LAUNCHES == before + 1
     ref = composite.composite_fwd_plain(k["table"], k["gid"], k["start"], k["end"], bg, **k["geometry"])
     assert got[0].shape == (views, channels, height, width)
-    for a, b, tol in zip(got[:3], ref[:3], (2e-5, 2e-4, 2e-5)):
-        assert torch.isfinite(a).all()
-        assert float((a - b).abs().max()) <= tol
-    assert torch.equal(got[3], ref[3])
+    check_forward(got, ref)
     assert bool((got[3] >= 0).any())
 
 
@@ -94,21 +179,31 @@ def scaled_err(a, b):
 @pytest.mark.parametrize(
     "n,views,width,height,tile,channels",
     [(300, 1, 48, 32, 16, 3), (3000, 3, 100, 70, 32, 3), (1500, 2, 64, 64, 32, 1),
-     (1500, 2, 64, 48, 8, 3), (3000, 3, 100, 70, 24, 3)],
+     (1500, 2, 64, 48, 8, 3), (3000, 3, 100, 70, 24, 3),
+     pytest.param(CLOUD100K, 5, 1280, 720, 32, 3, id=CLOUD100K)],
 )
 def test_backward_kernels_match_plain(cuda, n, views, width, height, tile, channels):
+    """K2 and the routing against their plain versions on the same rows
+    (rows 1e-4 scaled by the largest row value and per row, the routing
+    1e-5 scaled by the largest value and 1e-4 per row), each bitwise
+    identical across two launches; the ``CompositeTable`` backward on
+    d(table).  Random cotangents, or at ``CLOUD100K`` those of an L1 + SSIM
+    loss."""
     import splatpu_torch.render.route as route
 
-    args, cams = scene(n + 1, n, views, width, height, channels, cuda)
-    cfg = BinningConfig(tile=tile, max_span=256, max_pairs=1 << 18, chunk_pairs=256)
+    seed = None if n == CLOUD100K else n + 1
+    args, cams, cfg = table_scene(seed, n, views, width, height, tile, channels, cuda)
     streams, k = composite_inputs(args, cams, cfg)
     bg = torch.linspace(0.1, 0.3, channels, device=cuda)
     kin = (k["table"], k["gid"], k["start"], k["end"], bg)
-    _, _, tfin, last = composite.composite_fwd_cuda(*kin, **k["geometry"])
-    rng = np.random.default_rng(n)
-    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda)  # noqa: E731
-    cot = (t(rng.normal(size=(views, channels, height, width))),
-           t(rng.normal(size=(views, height, width))), t(rng.normal(size=(views, height, width))))
+    image, depth, tfin, last = composite.composite_fwd_cuda(*kin, **k["geometry"])
+    if n == CLOUD100K:
+        cot = loss_cotangents(image, depth, tfin)
+    else:
+        rng = np.random.default_rng(n)
+        t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda)  # noqa: E731
+        cot = (t(rng.normal(size=(views, channels, height, width))),
+               t(rng.normal(size=(views, height, width))), t(rng.normal(size=(views, height, width))))
     before = (composite.BWD_LAUNCHES, route.LAUNCHES)
     rows = composite.composite_bwd_cuda(*kin, tfin, last, *cot, **k["geometry"])
     rows_again = composite.composite_bwd_cuda(*kin, tfin, last, *cot, **k["geometry"])
@@ -117,7 +212,9 @@ def test_backward_kernels_match_plain(cuda, n, views, width, height, tile, chann
     assert rows.shape == (views, k["gid"].shape[1], 7 + channels)
     assert torch.isfinite(rows).all() and rows.abs().max() > 0
     assert scaled_err(rows, ref) <= 1e-4
+    assert row_scaled_err(rows, ref) <= 1e-4
     assert torch.equal(rows, rows_again)
+    del ref
 
     offsets = torch.stack([s.offsets for s in streams])
     counts = torch.stack([s.counts for s in streams])
@@ -130,16 +227,35 @@ def test_backward_kernels_match_plain(cuda, n, views, width, height, tile, chann
     ref_table = route.route_pairs_plain(rows, pos, offsets, counts)
     assert d_table.shape == k["table"].shape
     assert scaled_err(d_table, ref_table) <= 1e-5
+    assert row_scaled_err(d_table, ref_table) <= 1e-4
     assert torch.equal(d_table, d_again)
+    del rows, rows_again, d_table, d_again, ref_table
+    check_table_backward(kin, k["geometry"], streams, cot, "grid")
 
 
-def test_render_gradients_cuda_match_plain(cuda):
-    from splatpu_torch.render.api import render
+@pytest.mark.parametrize("bench", [False, True], ids=["small", "bench"])
+def test_render_gradients_cuda_match_plain(cuda, bench):
+    """``render`` through the kernels against the plain versions: the loss
+    1e-5 relative, the forward as ``check_forward``, every gradient 1e-4
+    scaled by its largest value and per column.  ``bench``:
+    ``bench_torch.py``'s scene, 100,000 random Gaussians from ``key(0)``
+    under one look-at view at 1280x720, ``default_config``'s budget."""
+    from splatpu_torch.render.api import default_config, render
 
-    args, cams = scene(7, 2000, 2, 96, 64, 3, cuda)
-    cfg = BinningConfig(tile=32, max_span=256, max_pairs=1 << 17, chunk_pairs=256)
-    target = torch.full((2, 3, 64, 96), 0.4, device=cuda)
-    grads = {}
+    if bench:
+        from splatpu_torch.core import prng
+        from splatpu_torch.data.synthetic import make_lookat_camera, make_random_cloud
+
+        args = tt.activate_cloud(make_random_cloud(prng.key(0), 100_000, extent=1.2,
+                                                   scale_range=(0.005, 0.02), device=cuda))
+        cams = tt.stack_cameras([make_lookat_camera(eye=(0, 0, -4.0), width=1280, height=720,
+                                                    focal=0.8 * 1280, device=cuda)])
+        cfg = default_config(100_000)
+    else:
+        args, cams = scene(7, 2000, 2, 96, 64, 3, cuda)
+        cfg = BinningConfig(tile=32, max_span=256, max_pairs=1 << 17, chunk_pairs=256)
+    target = torch.full((cams.num_views, 3, cams.height, cams.width), 0.4, device=cuda)
+    runs = {}
     for impl in ("cuda", "plain"):
         leaves = {f: getattr(args, f).clone().requires_grad_(True)
                   for f in ("means3d", "colors", "rotations", "opacities", "scales")}
@@ -147,93 +263,201 @@ def test_render_gradients_cuda_match_plain(cuda):
                      impl=impl, config=cfg)
         loss = (out.image - target).abs().mean() + 0.1 * out.depth.mean()
         loss.backward()
-        grads[impl] = {f: x.grad for f, x in leaves.items()}
-    for f, g in grads["cuda"].items():
+        assert not bool(out.overflowed.any())
+        runs[impl] = (float(loss.detach()), [x.detach() for x in (
+            out.image, out.depth, out.final_transmittance, out.last_contributor)],
+            {f: x.grad for f, x in leaves.items()})
+    (loss, got, grads), (ref_loss, ref, ref_grads) = runs["cuda"], runs["plain"]
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    check_forward(got, ref)
+    for f, g in grads.items():
         assert torch.isfinite(g).all(), f
-        assert scaled_err(g, grads["plain"][f]) <= 1e-4, f
+        assert scaled_err(g, ref_grads[f]) <= 1e-4, f
+        assert row_scaled_err(g, ref_grads[f]) <= 1e-4, f
 
 
-def manual_case(args, cams, channels, seed, cuda):
-    """The exact stream at 16 px tiles with ``channels`` seeded colours, the
-    K4 forward inputs, and random cotangents."""
+def manual_case(inputs, channels, seed, cuda):
+    """K4's inputs under kernel="manual" with ``channels`` seeded colours:
+    the random scene's stream at 16 px tiles and a fixed budget, with
+    random cotangents; or at ``CLOUD100K`` ``training_scene``'s at its
+    demand budget (32 px; config 3's own colours at 3 channels), with no
+    cotangents (the test takes those of an L1 + SSIM loss).  (streams,
+    inputs, geometry, cotangents, camera)."""
+    from splatpu_torch.render.api import demand_binning, measure_binning_demand
+
     rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda)  # noqa: E731
-    args = tt.RenderArgs(args.means3d, t(rng.uniform(0, 1, (args.n, channels))), args.rotations,
-                         args.opacities, args.scales)
-    cfg = BinningConfig(tile=16, max_span=256, max_pairs=1 << 18, chunk_pairs=256, kernel="manual")
+    if inputs == CLOUD100K:
+        args, cams = training_scene(cuda)
+        cfg = demand_binning(*measure_binning_demand(args, cams), overrides={"kernel": "manual"})
+    else:
+        args, cams = scene(11, 2500, 2, 96, 64, 3, cuda)
+        cfg = BinningConfig(tile=16, max_span=256, max_pairs=1 << 18, chunk_pairs=256,
+                            kernel="manual")
+    if not (inputs == CLOUD100K and channels == 3):
+        args = seeded_colors(args, channels, rng)
     streams, k = composite_inputs(args, cams, cfg)
     v, h, w = cams.num_views, cams.height, cams.width
-    cot = (t(rng.normal(size=(v, channels, h, w))), t(rng.normal(size=(v, h, w))),
-           t(rng.normal(size=(v, h, w))))
+    cot = None if inputs == CLOUD100K else (
+        t(rng.normal(size=(v, channels, h, w))), t(rng.normal(size=(v, h, w))),
+        t(rng.normal(size=(v, h, w))))
     bg = torch.linspace(0.1, 0.3, channels, device=cuda)
-    return streams, (k["table"], k["gid"], k["start"], k["end"], bg), k["geometry"], cot
+    return streams, (k["table"], k["gid"], k["start"], k["end"], bg), k["geometry"], cot, cams
 
 
-@pytest.mark.parametrize("channels", [3, 9])
-def test_manual_kernels_match_plain(cuda, channels):
-    args, cams = scene(11, 2500, 2, 96, 64, 3, cuda)
-    _, kin, geo, cot = manual_case(args, cams, channels, channels, cuda)
+BIG_P = (1 << 24) + (1 << 20)  # gid slots of K4's large-budget call
+BIG_BASE = 1 << 24             # where its segments start
+
+
+def big_budget(kin, tiles=4):
+    """View 0 of ``kin`` with its ``tiles`` longest segments moved above
+    pair position ``BIG_BASE`` in a gid of ``BIG_P`` slots and every other
+    tile empty, and the same segments packed into a gid of their own: (the
+    large inputs, the packed inputs, the pairs they hold)."""
+    table, gid, start, end, bg = (x[:1] if x.dim() > 1 else x for x in kin)
+    lengths = (end - start)[0]
+    longest = torch.argsort(lengths, descending=True)[:tiles]
+    window = torch.cat([gid[0, int(start[0, t]):int(end[0, t])] for t in longest.tolist()])
+    lens = lengths[longest]
+    offs = torch.cumsum(lens, 0) - lens
+    start_w, end_w = torch.zeros_like(start), torch.zeros_like(end)
+    start_w[0, longest] = offs.int()
+    end_w[0, longest] = (offs + lens).int()
+    gid_big = torch.zeros((1, BIG_P), dtype=torch.int32, device=gid.device)
+    gid_big[0, BIG_BASE:BIG_BASE + window.numel()] = window
+    start_b = torch.where(end_w > start_w, start_w + BIG_BASE, start_w)
+    end_b = torch.where(end_w > start_w, end_w + BIG_BASE, end_w)
+    return ((table, gid_big, start_b, end_b, bg), (table, window[None].contiguous(), start_w, end_w, bg),
+            window.numel())
+
+
+@pytest.mark.parametrize("channels,gid_slots,inputs", [
+    (3, None, "random"), (9, None, "random"), (9, BIG_P, "random"), (3, None, CLOUD100K),
+    (9, None, CLOUD100K)], ids=["3", "9", "9-2^24+2^20", f"3-{CLOUD100K}", f"9-{CLOUD100K}"])
+def test_manual_kernels_match_plain(cuda, channels, gid_slots, inputs):
+    """K4's forward (``check_forward``) and backward (rows 1e-4 scaled by
+    the largest value and per row, bitwise identical across two launches)
+    against their plain versions, the routing of its rows and the
+    ``CompositeTable`` backward under kernel="manual" (1e-4 per row); on
+    the random scene, or on config 3's cloud at 5 x 1280x720 at its demand
+    budget (``CLOUD100K``).  With ``gid_slots``: one view on a gid of
+    2^24 + 2^20 slots whose segments lie above 2^24 (``big_budget``),
+    against the plain versions on the packed segments; the rows outside
+    them zero."""
+    import splatpu_torch.render.route as route
+
+    streams, kin, geo, cot, cams = manual_case(inputs, channels, channels, cuda)
+    kin_plain, shift = kin, 0
+    if gid_slots:
+        kin, kin_plain, n_win = big_budget(kin)
+        cot, shift = tuple(x[:1] for x in cot), BIG_BASE
+    views = kin[0].shape[0]
     before = (composite.MANUAL_LAUNCHES, composite.MANUAL_BWD_LAUNCHES)
     got = composite.composite_manual_fwd_cuda(*kin, **geo)
     torch.cuda.synchronize()
-    ref = composite.composite_manual_fwd_plain(*kin, **geo)
-    assert got[0].shape == (2, channels, 64, 96)
-    for a, b, tol in zip(got[:3], ref[:3], (2e-5, 2e-4, 2e-5)):
-        assert torch.isfinite(a).all()
-        assert float((a - b).abs().max()) <= tol
-    assert torch.equal(got[3], ref[3]) and bool((got[3] >= 0).any())
+    ref = composite.composite_manual_fwd_plain(*kin_plain, **geo)
+    moved = lambda last, by: torch.where(last >= 0, last + by, last)  # noqa: E731
+    assert got[0].shape == (views, channels, cams.height, cams.width)
+    check_forward(got, (*ref[:3], moved(ref[3], shift)))
+    assert bool((got[3] >= shift).any())
+    del ref
+    if cot is None:
+        cot = loss_cotangents(*got[:3])
     rows = composite.composite_manual_bwd_cuda(*kin, got[2], got[3], *cot, **geo)
     again = composite.composite_manual_bwd_cuda(*kin, got[2], got[3], *cot, **geo)
     torch.cuda.synchronize()
     assert (composite.MANUAL_LAUNCHES, composite.MANUAL_BWD_LAUNCHES) == (before[0] + 1,
                                                                           before[1] + 2)
-    ref_rows = composite.composite_manual_bwd_plain(*kin, got[2], got[3], *cot, **geo)
-    assert rows.shape == (2, kin[1].shape[1], 7 + channels)
+    ref_rows = composite.composite_manual_bwd_plain(*kin_plain, got[2], moved(got[3], -shift),
+                                                    *cot, **geo)
+    assert rows.shape == (views, kin[1].shape[1], 7 + channels)
     assert torch.isfinite(rows).all() and rows.abs().max() > 0
-    assert scaled_err(rows, ref_rows) <= 1e-4
     assert torch.equal(rows, again)
+    if gid_slots:
+        assert not bool(rows[0, :BIG_BASE].any()) and not bool(rows[0, BIG_BASE + n_win:].any())
+        rows = rows[:, BIG_BASE:BIG_BASE + n_win]
+        assert float(rows.abs().max()) > 0
+    assert scaled_err(rows, ref_rows) <= 1e-4
+    assert row_scaled_err(rows, ref_rows) <= 1e-4
+    if gid_slots:
+        return
+    offsets, counts, lane = (torch.stack([getattr(s, f) for s in streams])
+                             for f in ("offsets", "counts", "lane"))
+    pos = route.pos_of_slot_of(offsets, kin[1], lane)
+    routed = route.route_pairs_cuda(rows, pos, offsets, counts)
+    assert row_scaled_err(routed, route.route_pairs_plain(rows, pos, offsets, counts)) <= 1e-4
+    check_table_backward(kin, geo, streams, cot, "manual")
 
 
-def padded_case(args, cams, channels, seed, cuda):
-    """The padded stream of every view at 16 px tiles with ``channels``
-    seeded colours, K5's inputs (records gathered by gid), and random
-    cotangents."""
+def padded_inputs(args, cams, cfg, bg):
+    """The padded stream of every view under ``cfg`` (16 px tiles): K5's
+    inputs (records gathered by gid), its geometry, and the per-Gaussian
+    table, gid and slot map that ``CompositeG`` and the routing take."""
     from splatpu_torch.render.binning import build_pair_stream
     from splatpu_torch.render.composite import pack_table
 
+    streams = [build_pair_stream(args, cams.view(i), cfg) for i in range(cams.num_views)]
+    stack = lambda f: torch.stack([getattr(s, f) for s in streams])  # noqa: E731
+    table = torch.stack([pack_table(s.splats.mean2d, s.splats.conic, s.g_opacity, s.splats.depth,
+                                    s.g_colors) for s in streams])
+    gid = stack("gid")
+    records = table[torch.arange(len(streams), device=gid.device)[:, None], gid.long()]
+    w, h = cams.width, cams.height
+    geo = dict(tiles_x=-(-w // 16), tiles_y=-(-h // 16), width=w, height=h)
+    return ((records.contiguous(), stack("start"), stack("end"), bg), geo,
+            dict(table=table, gid=gid, pos=stack("q_of_slot"), offsets=stack("emit_offsets"),
+                 counts=stack("emit_counts")))
+
+
+def padded_case(inputs, channels, seed, cuda):
+    """``padded_inputs`` at 16 px tiles with ``channels`` seeded colours: of
+    the random scene at a fixed budget, with random cotangents; or at
+    ``CLOUD100K`` of ``training_scene`` at its 16 px demand budget (the
+    padded path's training shapes; config 3's own colours at 3 channels),
+    with no cotangents (the caller takes those of an L1 + SSIM loss)."""
+    from splatpu_torch.render.api import demand_binning, measure_binning_demand
+
     rng = np.random.default_rng(seed)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda)  # noqa: E731
-    args = tt.RenderArgs(args.means3d, t(rng.uniform(0, 1, (args.n, channels))), args.rotations,
-                         args.opacities, args.scales)
-    cfg = BinningConfig(tile=16, max_span=256, max_pairs=1 << 17, chunk_pairs=128)
-    streams = [build_pair_stream(args, cams.view(i), cfg) for i in range(cams.num_views)]
-    records = torch.stack([
-        pack_table(s.splats.mean2d, s.splats.conic, s.g_opacity, s.splats.depth, s.g_colors)
-        [s.gid.long()] for s in streams]).contiguous()
+    if inputs == CLOUD100K:
+        args, cams = training_scene(cuda)
+        cfg = demand_binning(*measure_binning_demand(args, cams, tile=16), tile=16)
+    else:
+        args, cams = scene(12, 2500, 2, 100, 70, 3, cuda)
+        cfg = BinningConfig(tile=16, max_span=256, max_pairs=1 << 17, chunk_pairs=128)
+    if not (inputs == CLOUD100K and channels == 3):
+        args = seeded_colors(args, channels, rng)
+    kin, geo, parts = padded_inputs(args, cams, cfg, torch.linspace(0.1, 0.3, channels, device=cuda))
     v, h, w = cams.num_views, cams.height, cams.width
-    geo = dict(tiles_x=-(-w // 16), tiles_y=-(-h // 16), width=w, height=h)
-    cot = (t(rng.normal(size=(v, channels, h, w))), t(rng.normal(size=(v, h, w))),
-           t(rng.normal(size=(v, h, w))))
-    bg = torch.linspace(0.1, 0.3, channels, device=cuda)
-    start = torch.stack([s.start for s in streams])
-    end = torch.stack([s.end for s in streams])
-    return (records, start, end, bg), geo, cot
+    cot = None if inputs == CLOUD100K else (
+        t(rng.normal(size=(v, channels, h, w))), t(rng.normal(size=(v, h, w))),
+        t(rng.normal(size=(v, h, w))))
+    return kin, geo, cot, parts
 
 
-@pytest.mark.parametrize("channels", [3, 9])
-def test_padded_kernels_match_plain(cuda, channels):
+@pytest.mark.parametrize("channels,inputs", [(3, "random"), (9, "random"), (3, CLOUD100K),
+                                            (9, CLOUD100K)],
+                         ids=["3", "9", f"3-{CLOUD100K}", f"9-{CLOUD100K}"])
+def test_padded_kernels_match_plain(cuda, channels, inputs):
+    """K5's forward (``check_forward``) and backward (rows 1e-4 scaled by
+    the largest value and per row, bitwise identical across two launches)
+    against their plain versions, the routing of its rows in the padded
+    slot mode and the ``CompositeG`` backward on d(table) (1e-4 per row);
+    on the random scene, or on config 3's cloud at 5 x 1280x720 at its
+    16 px demand budget (``CLOUD100K``)."""
     import splatpu_torch.render.padded as padded
+    import splatpu_torch.render.route as route
 
-    args, cams = scene(12, 2500, 2, 100, 70, 3, cuda)
-    kin, geo, cot = padded_case(args, cams, channels, channels + 1, cuda)
+    kin, geo, cot, parts = padded_case(inputs, channels, channels + 1, cuda)
     before = (padded.LAUNCHES, padded.BWD_LAUNCHES)
     got = padded.padded_fwd_cuda(*kin, **geo)
     torch.cuda.synchronize()
     ref = padded.padded_fwd_plain(*kin, **geo)
-    for a, b, tol in zip(got[:3], ref[:3], (2e-5, 2e-4, 2e-5)):
-        assert torch.isfinite(a).all()
-        assert float((a - b).abs().max()) <= tol
-    assert torch.equal(got[3], ref[3]) and bool((got[3] >= 0).any())
+    check_forward(got, ref)
+    assert bool((got[3] >= 0).any())
+    del ref
+    if cot is None:
+        cot = loss_cotangents(*got[:3])
     rows = padded.padded_bwd_cuda(*kin, got[2], got[3], *cot, **geo)
     again = padded.padded_bwd_cuda(*kin, got[2], got[3], *cot, **geo)
     torch.cuda.synchronize()
@@ -241,7 +465,20 @@ def test_padded_kernels_match_plain(cuda, channels):
     ref_rows = padded.padded_bwd_plain(*kin, got[2], got[3], *cot, **geo)
     assert torch.isfinite(rows).all() and rows.abs().max() > 0
     assert scaled_err(rows, ref_rows) <= 1e-4
+    assert row_scaled_err(rows, ref_rows) <= 1e-4
     assert torch.equal(rows, again)
+    routing = (parts["pos"], parts["offsets"], parts["counts"])
+    routed = route.route_pairs_cuda(rows, *routing, padded=True)
+    assert row_scaled_err(routed, route.route_pairs_plain(rows, *routing, padded=True)) <= 1e-4
+    d_table = {}
+    for impl in ("cuda", "plain"):
+        table = parts["table"].clone().requires_grad_(True)
+        outs = padded.CompositeG.apply(table, kin[3], parts["gid"], kin[1], kin[2], *routing, geo,
+                                       impl)
+        torch.autograd.backward(outs[:3], cot)
+        d_table[impl] = table.grad
+    assert torch.isfinite(d_table["cuda"]).all() and bool((d_table["cuda"] != 0).any())
+    assert row_scaled_err(d_table["cuda"], d_table["plain"]) <= 1e-4
 
 
 @pytest.mark.parametrize("impls,kernel", [(("cuda", "plain"), "manual"),
@@ -293,21 +530,48 @@ def routing_case(padded, r, seed, device):
             t(offsets, torch.int32), t(counts, torch.int32))
 
 
-@pytest.mark.parametrize("padded", [False, True], ids=["exact", "padded"])
-@pytest.mark.parametrize("r", [8, 10, 16])
-def test_routing_modes_match_plain(cuda, padded, r):
+def padded_training_routing(device):
+    """The padded path's routing inputs at its training shapes: K5's
+    backward rows over ``padded_case(CLOUD100K)`` on the cotangents of an
+    L1 + SSIM loss; the streams' slot map, offsets and counts."""
+    import splatpu_torch.render.padded as padded
+
+    kin, geo, _, parts = padded_case(CLOUD100K, 3, 4, device)
+    out = padded.padded_fwd_cuda(*kin, **geo)
+    rows = padded.padded_bwd_cuda(*kin, *out[2:], *loss_cotangents(*out[:3]), **geo)
+    return rows, parts["pos"], parts["offsets"], parts["counts"]
+
+
+# (padded slot mode, rows, inputs): random slot maps, and the padded
+# stream at the padded path's training shapes.
+ROUTING_CASES = [pytest.param(padded, r, "random", id=f"{r}-{'padded' if padded else 'exact'}")
+                 for padded in (False, True) for r in (8, 10, 16)] + [
+    pytest.param(True, 10, CLOUD100K, id=f"10-padded-{CLOUD100K}")]
+
+
+@pytest.mark.parametrize("padded,r,inputs", ROUTING_CASES)
+def test_routing_modes_match_plain(cuda, padded, r, inputs):
+    """The routing kernel against its plain version, 1e-5 scaled per row
+    on random slot maps (1e-4 on the training shapes' stream), bitwise
+    identical across two launches."""
     import splatpu_torch.render.route as route
 
-    rows, slot_map, offsets, counts = routing_case(padded, r, r + 100 * padded, cuda)
+    if inputs == CLOUD100K:
+        rows, slot_map, offsets, counts = padded_training_routing(cuda)
+    else:
+        rows, slot_map, offsets, counts = routing_case(padded, r, r + 100 * padded, cuda)
     before = route.LAUNCHES
     got = route.route_pairs_cuda(rows, slot_map, offsets, counts, padded=padded)
     again = route.route_pairs_cuda(rows, slot_map, offsets, counts, padded=padded)
     torch.cuda.synchronize()
     assert route.LAUNCHES == before + 2
     ref = route.route_pairs_plain(rows, slot_map, offsets, counts, padded=padded)
-    assert got.shape == (2, 3000, r) and torch.isfinite(got).all()
-    assert row_scaled_err(got, ref) <= 1e-5
+    assert got.shape == (rows.shape[0], offsets.shape[1], r) and torch.isfinite(got).all()
+    assert row_scaled_err(got, ref) <= (1e-5 if inputs == "random" else 1e-4)
     assert torch.equal(got, again)
+    if inputs == CLOUD100K:
+        assert bool((got != 0).any())
+        return
     # Long runs inside the slot map were summed, and slots run past it.
     ends = offsets.long() + counts.long()
     long_inside = (counts >= 100) & (ends <= slot_map.shape[1])
@@ -411,6 +675,7 @@ def forward_scene(seed, channels, device, size=(100, 70)):
 
 FWD_CASES = [("composite_fwd", t, c) for t in (8, 16, 24, 32) for c in (1, 3, 5)] + [
     ("composite_manual_fwd", 32, c) for c in (1, 3, 9)] + [("padded_fwd", 16, c) for c in (3, 9)] + [
+    ("composite_manual_fwd", t, c) for t in (8, 24) for c in (3, 9)] + [
     ("composite_fwd", t, c) for t in LARGE_TILES for c in (1, 3, 5)] + [
     ("composite_manual_fwd", t, c) for t in LARGE_TILES for c in (3, 9)]
 
@@ -588,8 +853,11 @@ def test_camera_sharded_training_on_two_gloo_ranks(cuda, tmp_path):
         assert [run["counts"][k] for k in ("composite_fwd", "composite_bwd", "route_pairs")] == [4] * 3
 
 
-# The projection kernel (csrc/project.cu) against its plain version.
-PROJECTION_CASES = ["fixture", "offset_shared", "offset_per_view", "strip", "rig100k"]
+# The projection kernel (csrc/project.cu) against its plain version; on
+# the training cells' clouds and at the fit's shape bit for bit.
+TRAINING_PROJECTIONS = [CLOUD100K, "cloud250k", "fit250k"]
+PROJECTION_CASES = ["fixture", "offset_shared", "offset_per_view", "strip", "rig100k",
+                    *TRAINING_PROJECTIONS]
 
 
 def projection_case(name, device):
@@ -597,28 +865,46 @@ def projection_case(name, device):
     (dead slots: opacity 0) under 3 look-at views at 96x64, with a shared
     or per-view ``means2d_offset``, or as 2 strips' views (rows 32-63 of a
     96x96 image); or 100,000 random Gaussians, some behind the cameras,
-    under the first 5 rig views at 1280x720."""
-    from _np_scenes import np_cloud, np_lookat
-    from splatpu_torch.render.api import demand_binning, measure_binning_demand
-    from splatpu_torch.tools.train_scene import rig_cameras
+    under the first 5 rig views at 1280x720; or ``training_scene``, or
+    config 4's 250,000-Gaussian truth under the same views; or the fit's
+    shape: that truth in 500,224 slots under one rig view with a (1, N, 2)
+    offset collector."""
+    import dataclasses
 
+    from _np_scenes import np_cloud, np_lookat
+    from splatpu_torch.io.checkpoint import load_cloud
+    from splatpu_torch.render.api import demand_binning, measure_binning_demand
+
+    if name == CLOUD100K:
+        args, cam = training_scene(device)
+        return args, cam, demand_binning(*measure_binning_demand(args, cam))
+    if name in TRAINING_PROJECTIONS:
+        truth = load_cloud(ROOT / "runs" / "acceptance_truth" / "truth_n250000.npz", device=device)
+        cam = rig_camera(1 if name == "fit250k" else 5, device)
+        if name == "fit250k":
+            cloud = tt.cloud_from_arrays(**truth.param_dict(), capacity=500_224, device=device)
+            args = dataclasses.replace(tt.activate_cloud(cloud), means2d_offset=torch.zeros(
+                (1, cloud.capacity, 2), device=device))
+        else:
+            args = tt.activate_cloud(truth)
+        return args, cam, demand_binning(*measure_binning_demand(args, cam))
     w, h, fov, row0 = 96, 64, None, 0
     eyes = [(3.5 * np.sin(a), 0.3, -3.5 * np.cos(a)) for a in (0.0, 1.1, 2.6)]
     if name == "rig100k":
         c = np_cloud(41, 100_000, extent=3.0, scale_range=(0.005, 0.05), n_dead=1000)
-        w, h = 1280, 720
-        cams = rig_cameras(w, h)[:5]
-    elif name == "strip":
-        c = np_cloud(42, 3000, extent=1.5, n_dead=100)
-        h, fov, row0 = 32, (96, 96), 32
-        cams = [np_lookat(e, 96, 96) for e in eyes[:2]]
+        cam = rig_camera(5, device)
     else:
-        c = np_cloud(43, 3000, extent=1.5, n_dead=100)
-        cams = [np_lookat(e, w, h) for e in eyes]
-    cam = tt.Camera(w2c=torch.from_numpy(np.stack([x[0] for x in cams])).to(device),
-                    K=torch.from_numpy(np.stack([x[1] for x in cams])).to(device), width=w,
-                    height=h, fov_width=fov and fov[0], fov_height=fov and fov[1],
-                    row_offset=row0)
+        if name == "strip":
+            c = np_cloud(42, 3000, extent=1.5, n_dead=100)
+            h, fov, row0 = 32, (96, 96), 32
+            cams = [np_lookat(e, 96, 96) for e in eyes[:2]]
+        else:
+            c = np_cloud(43, 3000, extent=1.5, n_dead=100)
+            cams = [np_lookat(e, w, h) for e in eyes]
+        cam = tt.Camera(w2c=torch.from_numpy(np.stack([x[0] for x in cams])).to(device),
+                        K=torch.from_numpy(np.stack([x[1] for x in cams])).to(device), width=w,
+                        height=h, fov_width=fov and fov[0], fov_height=fov and fov[1],
+                        row_offset=row0)
     cloud = tt.GaussianCloud(**{k: torch.from_numpy(np.array(v)) for k, v in c.items()})
     args = tt.activate_cloud(cloud.to(device))
     rng = np.random.default_rng(len(name))
@@ -648,9 +934,10 @@ def ulp_gap(a, b) -> int:
 def test_projection_kernel_matches_plain(cuda, name):
     """The forward kernel against ``preprocess`` + the table pack on the
     card: radius and visibility identical, so the binning's gid, start and
-    end are; mean2d, conic and depth within 1 ulp (the largest gap is
-    printed); the masked opacity and colours identical; two launches
-    bitwise identical, one launch each."""
+    end are; mean2d, conic and depth within 1 ulp, identical on the
+    ``TRAINING_PROJECTIONS`` (the largest gap is printed); the masked
+    opacity and colours identical; two launches bitwise identical, one
+    launch each."""
     import splatpu_torch.render.exact as exact
     import splatpu_torch.render.project as project
 
@@ -665,13 +952,14 @@ def test_projection_kernel_matches_plain(cuda, name):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert torch.equal(visible, ref_visible)
     assert torch.equal(radius, ref_radius)
-    assert bool(visible.any()) and not bool(visible.all())
+    # Every Gaussian of the training cells' clouds is in view.
+    assert bool(visible.any()) and (name in (CLOUD100K, "cloud250k") or not bool(visible.all()))
     gaps = {col: ulp_gap(table[..., i], ref_table[..., i])
             for i, col in enumerate(("mean2d_x", "mean2d_y", "conic_a", "conic_b", "conic_c"))}
     gaps["depth"] = ulp_gap(table[..., 6], ref_table[..., 6])
     print(f"projection {name}: largest ulp gaps {gaps}; values differing "
           f"{int((table[..., :7] != ref_table[..., :7]).sum())} of {table[..., :7].numel()}")
-    assert max(gaps.values()) <= 1, gaps
+    assert max(gaps.values()) <= (0 if name in TRAINING_PROJECTIONS else 1), gaps
     assert torch.equal(table[..., 5], ref_table[..., 5])
     assert torch.equal(table[..., 7:], ref_table[..., 7:])
     streams = exact.bin_projected(args, cams, binning, table, radius, visible)
@@ -830,7 +1118,6 @@ def test_render_dual_cuda_matches_plain_at_the_fit_shape(cuda):
     )
     from splatpu_torch.io.checkpoint import load_cloud
     from splatpu_torch.render.api import render_dual
-    from splatpu_torch.tools.train_scene import rig_cameras
     from splatpu_torch.train.losses import SEGMENTATION_WEIGHT, image_losses
     from splatpu_torch.train.optim import Stage1Adam
     from splatpu_torch.train.stage1 import split_normals
@@ -839,10 +1126,7 @@ def test_render_dual_cuda_matches_plain_at_the_fit_shape(cuda):
     truth = load_cloud(root / "runs" / "acceptance_truth" / "truth_n250000.npz", device=cuda)
     third = {k: v[::3] for k, v in truth.param_dict().items()}
     cloud = cloud_from_arrays(**third, capacity=500_224, device=cuda)
-    w, h = 1280, 720
-    c = rig_cameras(w, h)[0]
-    cam = tt.Camera(w2c=torch.from_numpy(c[0][None]).to(cuda),
-                    K=torch.from_numpy(c[1][None]).to(cuda), width=w, height=h)
+    cam = rig_camera(1, cuda)
     binning = BinningConfig(tile=32, max_span=32, span_small=16, max_pairs=2_000_896)
     jitter = torch.from_numpy(np.random.default_rng(1).normal(
         0.0, 0.005, tuple(cloud.means.shape)).astype(np.float32)).to(cuda)
